@@ -20,9 +20,16 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from webgpu_raytracing_tpu.config import F32_MAX, RenderSettings
+from webgpu_raytracing_tpu.models.analytic import analytic_scene
 from webgpu_raytracing_tpu.renderer import Renderer
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return analytic_scene()
 
 
 def _path_trace_pair(scene, backend, **kw):
@@ -60,8 +67,8 @@ def _path_trace_pair(scene, backend, **kw):
     return out
 
 
-def test_chained_is_pure_reordering_clustered(cornell_scene):
-    a, b = _path_trace_pair(cornell_scene, "clustered")
+def test_chained_is_pure_reordering_clustered(scene):
+    a, b = _path_trace_pair(scene, "clustered")
     np.testing.assert_array_equal(np.asarray(a.color), np.asarray(b.color))
     np.testing.assert_array_equal(np.asarray(a.state), np.asarray(b.state))
     np.testing.assert_array_equal(
@@ -69,25 +76,24 @@ def test_chained_is_pure_reordering_clustered(cornell_scene):
     )
 
 
-def test_chained_is_pure_reordering_with_nee(cornell_scene):
+def test_chained_is_pure_reordering_with_nee(scene):
     """NEE shadow rays ride the segment permutation with no sort leg of
     their own — still bit-identical at the integrator level."""
     a, b = _path_trace_pair(
-        cornell_scene, "clustered", next_event_estimation=True
+        scene, "clustered", next_event_estimation=True
     )
     np.testing.assert_array_equal(np.asarray(a.color), np.asarray(b.color))
     np.testing.assert_array_equal(np.asarray(a.state), np.asarray(b.state))
 
 
-def test_chained_is_pure_reordering_pallas(cornell_scene):
-    """The REAL kernel path (pairs mode + in-kernel ambiguity flag) under
-    the Pallas interpreter."""
-    a, b = _path_trace_pair(cornell_scene, "pallas_interpret")
+def test_chained_is_pure_reordering_pallas(scene, interpreted_kernel):
+    """The GPU path: the Triton kernel under the Pallas interpreter."""
+    a, b = _path_trace_pair(scene, "triton")
     np.testing.assert_array_equal(np.asarray(a.color), np.asarray(b.color))
     np.testing.assert_array_equal(np.asarray(a.state), np.asarray(b.state))
 
 
-def test_chained_frame_deviation_is_ulp_bounded(cornell_scene):
+def test_chained_frame_deviation_is_ulp_bounded(scene):
     """Full-frame (renderer-level) A/B: different compiled graphs, so XLA
     fusion noise up to ~1 ulp is allowed on the color — but intersection
     decisions and sample counts must match exactly, and the relative
@@ -100,7 +106,7 @@ def test_chained_frame_deviation_is_ulp_bounded(cornell_scene):
             sample_count=1, bounces_depth=4, traversal="clustered",
             chained_sort=chained,
         )
-        r = Renderer(cornell_scene, s, base_seed=11)
+        r = Renderer(scene, s, base_seed=11)
         for _ in range(2):
             r.step()
         return np.asarray(r.buffers.image), np.asarray(r.buffers.geo_face)

@@ -1,8 +1,9 @@
-"""Clustered (MXU-native) traversal: equivalence with the threaded-BVH
-oracle and brute force; cluster table invariants."""
+"""Clustered traversal (XLA path and Triton kernel): equivalence with the
+threaded-BVH oracle and brute force; cluster table invariants."""
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 
 from webgpu_raytracing_tpu.config import F32_MAX
@@ -158,10 +159,10 @@ def test_clustered_respects_tmax_and_active():
 
 
 def test_pallas_kernel_interpret_matches_threaded(rng_np):
-    """The Pallas tile kernel (interpret mode on CPU) must agree with the
+    """The Triton tile kernel (interpret mode on CPU) must agree with the
     threaded-BVH oracle."""
-    from webgpu_raytracing_tpu.ops.cluster_pallas import (
-        trace_closest_clustered_pallas,
+    from webgpu_raytracing_tpu.ops.cluster_triton import (
+        trace_clustered_triton,
     )
 
     scene = _scene()
@@ -173,7 +174,7 @@ def test_pallas_kernel_interpret_matches_threaded(rng_np):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     tmax = jnp.full((n,), F32_MAX, jnp.float32)
     ref = trace_closest(jnp.asarray(o), jnp.asarray(d), tmax, tables)
-    pk = trace_closest_clustered_pallas(
+    pk = trace_clustered_triton(
         jnp.asarray(o), jnp.asarray(d), tmax, tables, tile=128,
         interpret=True,
     )
@@ -183,6 +184,7 @@ def test_pallas_kernel_interpret_matches_threaded(rng_np):
         np.asarray(pk.t)[hits], np.asarray(ref.t)[hits], rtol=2e-4,
         atol=1e-5,
     )
+    np.testing.assert_array_equal(np.asarray(pk.face), np.asarray(ref.face))
 
 
 def test_sorted_trace_matches_plain(rng_np):
@@ -255,9 +257,7 @@ def test_clustered_any_hit_matches_threaded(rng_np):
 def test_pallas_any_hit_interpret_matches_threaded(rng_np):
     """The any-hit early-exit kernel path (shadow rays) must agree with
     the threaded any-hit oracle, bounded and unbounded."""
-    from webgpu_raytracing_tpu.ops.cluster_pallas import (
-        trace_closest_clustered_pallas,
-    )
+    from webgpu_raytracing_tpu.ops.cluster_triton import trace_any_triton
     from webgpu_raytracing_tpu.ops.traverse import trace_any
 
     scene = _scene()
@@ -269,500 +269,68 @@ def test_pallas_any_hit_interpret_matches_threaded(rng_np):
     for tmax_val in (F32_MAX, 2.5):
         tmax = jnp.full((n,), tmax_val, jnp.float32)
         ref = trace_any(jnp.asarray(o), jnp.asarray(d), tmax, tables)
-        pk = trace_closest_clustered_pallas(
+        pk = trace_any_triton(
             jnp.asarray(o), jnp.asarray(d), tmax, tables, tile=128,
-            interpret=True, any_hit=True,
+            interpret=True,
         )
-        np.testing.assert_array_equal(
-            np.asarray(pk.face) >= 0, np.asarray(ref)
-        )
+        np.testing.assert_array_equal(np.asarray(pk), np.asarray(ref))
 
 
-def test_pallas_approx_div_matches(rng_np):
-    """approx_div=True uses a fast reciprocal only for the in-round
-    winner pick; faces must agree except possible near-ties and the
-    reported t/u/v stay exact (re-derived per winner)."""
-    from webgpu_raytracing_tpu.ops.cluster_pallas import (
-        trace_closest_clustered_pallas,
-    )
-
-    scene = _scene()
-    tables = scene.tables()
-    n = 256
-    o = rng_np.uniform(-3, 3, (n, 3)).astype(np.float32)
-    d = rng_np.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tmax = jnp.full((n,), F32_MAX, jnp.float32)
-    base = trace_closest_clustered_pallas(
-        jnp.asarray(o), jnp.asarray(d), tmax, tables, tile=128,
-        interpret=True,
-    )
-    apx = trace_closest_clustered_pallas(
-        jnp.asarray(o), jnp.asarray(d), tmax, tables, tile=128,
-        interpret=True, approx_div=True,
-    )
-    np.testing.assert_array_equal(
-        np.asarray(apx.face) >= 0, np.asarray(base.face) >= 0
-    )
-    both = (np.asarray(apx.face) >= 0) & (
-        np.asarray(apx.face) == np.asarray(base.face)
-    )
-    assert both.sum() > 0.99 * (np.asarray(base.face) >= 0).sum()
-    np.testing.assert_allclose(
-        np.asarray(apx.t)[both], np.asarray(base.t)[both], rtol=1e-6
-    )
-
-
-def test_pallas_tiles_per_step_bit_identical(rng_np):
-    """tiles_per_step > 1 (multi-tile grid steps) is a pure scheduling
-    change — results must be bit-identical to tiles_per_step=1, including
-    when the tile count does not divide the step count (tail padding)."""
-    from webgpu_raytracing_tpu.ops.cluster_pallas import (
-        trace_closest_clustered_pallas,
-    )
-
-    scene = _scene()
-    tables = scene.tables()
-    n = 384  # 3 tiles of 128 — not divisible by steps of 2 or 4
-    o = rng_np.uniform(-3, 3, (n, 3)).astype(np.float32)
-    d = rng_np.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tmax = jnp.full((n,), F32_MAX, jnp.float32)
-    base = trace_closest_clustered_pallas(
-        jnp.asarray(o), jnp.asarray(d), tmax, tables, tile=128,
-        interpret=True,
-    )
-    for g in (2, 4):
-        multi = trace_closest_clustered_pallas(
-            jnp.asarray(o), jnp.asarray(d), tmax, tables, tile=128,
-            interpret=True, tiles_per_step=g,
-        )
-        np.testing.assert_array_equal(
-            np.asarray(multi.face), np.asarray(base.face)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(multi.t), np.asarray(base.t)
-        )
-
-
-def test_pallas_lockstep_bit_identical(rng_np):
-    """Lockstep tile batching (one fused round loop per grid step) is a
-    pure scheduling change: per tile it drains the same shortlist in the
-    same near order under the same prune bound, and finished tiles'
-    speculative rows are reverted — results must be bit-identical to the
-    serial kernel, across gang settings, the heavy/light split, any_hit,
-    and tail padding."""
-    from webgpu_raytracing_tpu.ops.cluster_pallas import (
-        trace_closest_clustered_pallas,
-    )
-
-    scene = _scene()
-    tables = scene.tables()
-    n = 1000  # pads to 8 tiles of 128 (tail partially dead)
-    o = rng_np.uniform(-3, 3, (n, 3)).astype(np.float32)
-    d = rng_np.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tmax = jnp.full((n,), F32_MAX, jnp.float32)
-    for any_hit in (False, True):
-        base = trace_closest_clustered_pallas(
-            jnp.asarray(o), jnp.asarray(d), tmax, tables, tile=128,
-            interpret=True, exact_pairs=False, any_hit=any_hit,
-        )
-        for tile, kw in (
-            (128, dict(tiles_per_step=2)),
-            (128, dict(tiles_per_step=4)),
-            # heavy/light split: 8 tiles, frac 2 -> 4 heavy (ganged
-            # inside the lockstep) + 4 light
-            (128, dict(tiles_per_step=2, gang=2, gang_frac=2)),
-            (128, dict(tiles_per_step=2, gang=4, gang_frac=0)),
-            # small tiles (the r4 throughput configuration)
-            (32, dict(tiles_per_step=32)),
-            (64, dict(tiles_per_step=8, gang=2, gang_frac=2)),
-        ):
-            got = trace_closest_clustered_pallas(
-                jnp.asarray(o), jnp.asarray(d), tmax, tables, tile=tile,
-                interpret=True, exact_pairs=False, any_hit=any_hit,
-                lockstep=True, **kw,
-            )
-            if any_hit:
-                np.testing.assert_array_equal(
-                    np.asarray(got.face) >= 0, np.asarray(base.face) >= 0
-                )
-            else:
-                np.testing.assert_array_equal(
-                    np.asarray(got.face), np.asarray(base.face)
-                )
-                np.testing.assert_array_equal(
-                    np.asarray(got.t), np.asarray(base.t)
-                )
-
-
-def test_pallas_multipass_bit_identical(rng_np):
-    """Capped-rounds + recompaction multipass (ops/ray_sort.py
-    sorted_trace_multipass) must be bit-identical to the single-pass
-    sorted trace: the kernel-exported stop key only skips provably
-    processed clusters, extra union candidates from the re-grouping
-    never win (grouping independence), and the pass merge is the packed
-    key min split associatively. Exercised with dead lanes and
-    source-face exclusion codes, across caps and pass counts."""
-    import functools
-
-    from webgpu_raytracing_tpu.ops.cluster_pallas import (
-        trace_closest_clustered_pallas,
+@pytest.mark.parametrize(
+    "dead_frac,frac", [(0.7, 0.5), (0.0, 0.25)], ids=["sliced", "overflow"]
+)
+@pytest.mark.parametrize("mode", ["closest", "any"])
+def test_live_slice_bit_identical(mode, dead_frac, frac):
+    """sorted_trace(live_slice=...) at r >= 1024 must equal the full-width
+    sorted trace bit for bit: with most lanes dead the trace runs on the
+    live prefix and the keyless tail takes the miss answer ("sliced");
+    with too many live rays the full-width fallback runs ("overflow").
+    Driven through the Triton kernel (interpreter), as on the GPU."""
+    from webgpu_raytracing_tpu.ops.cluster_triton import (
+        trace_clustered_triton,
     )
     from webgpu_raytracing_tpu.ops.ray_sort import (
-        sorted_trace,
-        sorted_trace_multipass,
-    )
-
-    scene = _scene()
-    tables = scene.tables()
-    n = 2000
-    o = rng_np.uniform(-3, 3, (n, 3)).astype(np.float32)
-    d = rng_np.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tmax = jnp.full((n,), F32_MAX, jnp.float32)
-    active = jnp.asarray(rng_np.uniform(size=n) > 0.1)
-    n_codes = tables.clusters.n_clusters * tables.clusters.face_id.shape[1]
-    excl = jnp.asarray(
-        rng_np.integers(-1, n_codes, size=n).astype(np.int32)
-    )
-
-    fn = functools.partial(
-        trace_closest_clustered_pallas, interpret=True, tile=128,
-        tiles_per_step=4, exact_pairs=False, gang=2, gang_frac=0,
-        lockstep=True, derive_uv=False,
-    )
-
-    def tf(o_, d_, tm_, tb_, act_, ex_=None):
-        h = fn(o_, d_, tm_, tb_, act_, excl_code=ex_)
-        return h.t, h.face
-
-    t0, f0 = sorted_trace(
-        tf, jnp.asarray(o), jnp.asarray(d), tmax, tables, active,
-        extra=excl,
-    )
-    # surv_frac sweep at r=2000: every frac lands on the lax.cond
-    # (w2 < r), which branch runs is decided by the pass-1 survivor
-    # count — asserted below, not assumed
-    for cap, passes, frac in (
-        (1, 2, 8), (2, 3, 8), (4, 2, 8), (1, 2, 1000), (4, 2, 2000)
-    ):
-        t1, f1 = sorted_trace_multipass(
-            fn, jnp.asarray(o), jnp.asarray(d), tmax, tables, active,
-            extra=excl, cap=cap, passes=passes, surv_frac=frac,
-        )
-        np.testing.assert_array_equal(np.asarray(f1), np.asarray(f0))
-        np.testing.assert_array_equal(np.asarray(t1), np.asarray(t0))
-
-    # pin which lax.cond branch each frac actually exercised: replicate
-    # pass 1 (sort by nearest-cluster key + capped kernel) and count
-    # survivors the way _recompact_final_pass does (bitcast(t) > stop)
-    import jax
-
-    from webgpu_raytracing_tpu.ops.ray_sort import nearest_cluster_key
-
-    def n_survivors(cap):
-        tm = jnp.where(active, tmax, 0.0)
-        key = nearest_cluster_key(
-            jnp.asarray(o), jnp.asarray(d), tm, tables.clusters.sort_box
-        )
-        order = jnp.argsort(key, stable=True)
-        hit, stop = fn(
-            jnp.asarray(o)[order], jnp.asarray(d)[order], tm[order],
-            tables, None, excl_code=excl[order], cap=cap,
-            return_stop=True,
-        )
-        return int(jnp.sum(
-            (jax.lax.bitcast_convert_type(hit.t, jnp.int32) > stop)
-            .astype(jnp.int32)
-        ))
-
-    def w2(r, frac):
-        return min(r, max(128, (-(-r // frac) + 127) // 128 * 128))
-
-    assert n_survivors(4) <= w2(n, 8), "frac=8 must take the sized slice"
-
-    # fallback branch: the uniform random set leaves too few pass-1
-    # survivors (measured 127 < the 128 floor slice), so aim every ray
-    # through the dense scene interior from a far shell — each crosses
-    # many clusters and survives cap=1 (measured 236 > 128)
-    rng_f = np.random.default_rng(0)  # pinned: survivor count must stay
-    o_f = rng_f.normal(size=(n, 3))
-    o_f = (o_f / np.linalg.norm(o_f, axis=1, keepdims=True) * 12).astype(
-        np.float32
-    )
-    tgt = rng_f.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
-    d_f = tgt - o_f
-    d_f = (d_f / np.linalg.norm(d_f, axis=1, keepdims=True)).astype(
-        np.float32
-    )
-    key_f = nearest_cluster_key(
-        jnp.asarray(o_f), jnp.asarray(d_f), tmax, tables.clusters.sort_box
-    )
-    ord_f = jnp.argsort(key_f, stable=True)
-    hit_f, stop_f = fn(
-        jnp.asarray(o_f)[ord_f], jnp.asarray(d_f)[ord_f], tmax[ord_f],
-        tables, None, cap=1, return_stop=True,
-    )
-    n_surv_f = int(jnp.sum(
-        (jax.lax.bitcast_convert_type(hit_f.t, jnp.int32) > stop_f)
-        .astype(jnp.int32)
-    ))
-    assert n_surv_f > w2(n, 1000), (
-        "aimed set must overflow the 128 slice (full-width fallback)"
-    )
-    t0f, f0f = sorted_trace(
-        tf, jnp.asarray(o_f), jnp.asarray(d_f), tmax, tables,
-    )
-    t1f, f1f = sorted_trace_multipass(
-        fn, jnp.asarray(o_f), jnp.asarray(d_f), tmax, tables,
-        cap=1, passes=2, surv_frac=1000,
-    )
-    np.testing.assert_array_equal(np.asarray(f1f), np.asarray(f0f))
-    np.testing.assert_array_equal(np.asarray(t1f), np.asarray(t0f))
-
-    # small-r run (r <= 128 ⇒ w2 == r): the static direct path, no
-    # lax.cond compiled at all
-    m = 128
-    t0s, f0s = sorted_trace(
-        tf, jnp.asarray(o[:m]), jnp.asarray(d[:m]), tmax[:m],
-        tables, active[:m], extra=excl[:m],
-    )
-    t1s, f1s = sorted_trace_multipass(
-        fn, jnp.asarray(o[:m]), jnp.asarray(d[:m]), tmax[:m], tables,
-        active[:m], extra=excl[:m], cap=1, passes=2, surv_frac=8,
-    )
-    np.testing.assert_array_equal(np.asarray(f1s), np.asarray(f0s))
-    np.testing.assert_array_equal(np.asarray(t1s), np.asarray(t0s))
-
-
-def test_pallas_binned_trace_bit_identical(rng_np):
-    """The binned trace (ops/ray_sort.binned_trace: pass 1 executes the
-    distinct nearest-cluster ids per 128-ray block, survivors go
-    through the compacted drain pass with the per-ray stop/t_start skip
-    mask) must be bit-identical to the single-pass sorted trace:
-    processing extra clusters is idempotent (packed-key min merge),
-    missing processing is exactly what the stop key accounts for.
-    Exercised with dead lanes, exclusion codes, uniform-random and
-    aimed (multi-cluster-crossing) ray sets, and both surv_frac
-    branches of the survivor pass. fn runs gang<=1 so the drain pass
-    truncates t at the same slot-bit granularity as the binned kernel."""
-    import functools
-
-    import jax
-
-    from webgpu_raytracing_tpu.ops.cluster_pallas import (
-        trace_closest_clustered_pallas,
-    )
-    from webgpu_raytracing_tpu.ops.ray_sort import binned_trace, sorted_trace
-
-    scene = _scene()
-    tables = scene.tables()
-    n = 2000
-    fn = functools.partial(
-        trace_closest_clustered_pallas, interpret=True, tile=128,
-        tiles_per_step=4, exact_pairs=False, gang=0, gang_frac=0,
-        lockstep=True, derive_uv=False,
-    )
-
-    def tf(o_, d_, tm_, tb_, act_, ex_=None):
-        h = fn(o_, d_, tm_, tb_, act_, excl_code=ex_)
-        return h.t, h.face
-
-    # uniform random set with dead lanes + exclusion codes
-    o = rng_np.uniform(-3, 3, (n, 3)).astype(np.float32)
-    d = rng_np.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tmax = jnp.full((n,), F32_MAX, jnp.float32)
-    active = jnp.asarray(rng_np.uniform(size=n) > 0.1)
-    n_codes = tables.clusters.n_clusters * tables.clusters.face_id.shape[1]
-    excl = jnp.asarray(
-        rng_np.integers(-1, n_codes, size=n).astype(np.int32)
-    )
-    t0, f0 = sorted_trace(
-        tf, jnp.asarray(o), jnp.asarray(d), tmax, tables, active,
-        extra=excl,
-    )
-    for frac in (4, 1000):
-        t1, f1 = binned_trace(
-            fn, jnp.asarray(o), jnp.asarray(d), tmax, tables, active,
-            extra=excl, surv_frac=frac, interpret=True,
-        )
-        np.testing.assert_array_equal(np.asarray(f1), np.asarray(f0))
-        np.testing.assert_array_equal(np.asarray(t1), np.asarray(t0))
-
-    # aimed set: every ray crosses many clusters (deep survivor cascade)
-    rng_f = np.random.default_rng(0)
-    o_f = rng_f.normal(size=(n, 3))
-    o_f = (o_f / np.linalg.norm(o_f, axis=1, keepdims=True) * 12).astype(
-        np.float32
-    )
-    tgt = rng_f.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
-    d_f = tgt - o_f
-    d_f = (d_f / np.linalg.norm(d_f, axis=1, keepdims=True)).astype(
-        np.float32
-    )
-    t0f, f0f = sorted_trace(
-        tf, jnp.asarray(o_f), jnp.asarray(d_f), tmax, tables,
-    )
-    t1f, f1f = binned_trace(
-        fn, jnp.asarray(o_f), jnp.asarray(d_f), tmax, tables,
-        surv_frac=4, interpret=True,
-    )
-    np.testing.assert_array_equal(np.asarray(f1f), np.asarray(f0f))
-    np.testing.assert_array_equal(np.asarray(t1f), np.asarray(t0f))
-
-
-def test_pallas_binned_any_blocked_set(rng_np):
-    """binned_trace_any must produce EXACTLY the blocked set of the
-    single-pass sorted any-hit trace: occluded-ness is an existence
-    predicate, so any processing order proves the same thing; the
-    survivor condition (no hit AND an unprocessed entered cluster)
-    plus the t_start skip mask account for everything pass 1 did not
-    test. Bounded (light-NEE-style) and unbounded (env-NEE-style)
-    t_max, dead lanes, exclusion codes, both surv_frac branches."""
-    import functools
-
-    from webgpu_raytracing_tpu.ops.cluster_pallas import (
-        trace_closest_clustered_pallas,
-    )
-    from webgpu_raytracing_tpu.ops.ray_sort import (
-        binned_trace_any,
+        nearest_cluster_key,
         sorted_trace,
     )
+    from webgpu_raytracing_tpu.ops.traverse import Hit
 
-    scene = _scene()
-    tables = scene.tables()
-    n = 2000
-    fn = functools.partial(
-        trace_closest_clustered_pallas, interpret=True, tile=128,
-        tiles_per_step=4, any_hit=True, exact_pairs=False,
-        lockstep=True, derive_uv=False,
-    )
-
-    def tf(o_, d_, tm_, tb_, act_, ex_=None):
-        h = fn(o_, d_, tm_, tb_, act_, excl_code=ex_)
-        return (h.face >= 0,)
-
-    o = rng_np.uniform(-3, 3, (n, 3)).astype(np.float32)
-    d = rng_np.normal(size=(n, 3)).astype(np.float32)
+    tables = _scene().tables(cluster_size=16, group_size=4)
+    n = 2048
+    rng = np.random.default_rng(21)
+    o = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    active = jnp.asarray(rng_np.uniform(size=n) > 0.1)
-    n_codes = tables.clusters.n_clusters * tables.clusters.face_id.shape[1]
-    excl = jnp.asarray(
-        rng_np.integers(-1, n_codes, size=n).astype(np.int32)
-    )
-    for tmax in (
-        jnp.full((n,), F32_MAX, jnp.float32),  # env-NEE: unbounded
-        jnp.asarray(
-            rng_np.uniform(0.5, 6.0, n).astype(np.float32)
-        ),  # light-NEE: bounded shadow distance
-    ):
-        (b0,) = sorted_trace(
-            tf, jnp.asarray(o), jnp.asarray(d), tmax, tables, active,
-            extra=excl,
+    o, d = jnp.asarray(o), jnp.asarray(d)
+    active = jnp.asarray(rng.random(n) >= dead_frac)
+    tm = jnp.full((n,), F32_MAX if mode == "closest" else 3.0, jnp.float32)
+
+    def fn(o_, d_, tm_, tb_, act_):
+        h = trace_clustered_triton(
+            o_, d_, tm_, tb_, act_, tile=64, interpret=True,
+            any_hit=mode == "any",
         )
-        for frac, mid in ((4, False), (4, True), (1000, False)):
-            b1 = binned_trace_any(
-                fn, jnp.asarray(o), jnp.asarray(d), tmax, tables,
-                active, extra=excl, surv_frac=frac, interpret=True,
-                mid=mid,
-            )
-            np.testing.assert_array_equal(np.asarray(b1), np.asarray(b0))
+        return h if mode == "closest" else h.face >= 0
 
+    def tail(tm_tail):
+        if mode == "any":
+            return jnp.zeros(tm_tail.shape, jnp.bool_)
+        z = jnp.zeros(tm_tail.shape, jnp.float32)
+        return Hit(t=tm_tail, u=z, v=z,
+                   face=jnp.full(tm_tail.shape, -1, jnp.int32))
 
-def test_pallas_capped_stop_covers_all_changes(rng_np):
-    """The multipass survivor contract: every ray whose capped-pass
-    result differs from the uncapped trace MUST be flagged a survivor
-    (bitcast(t) > stop) — the conservative direction correctness rests
-    on. Run UNSORTED so tile unions are large and the cap genuinely
-    truncates work."""
-    from webgpu_raytracing_tpu.ops.cluster_pallas import (
-        trace_closest_clustered_pallas,
+    keys = nearest_cluster_key(
+        o, d, jnp.where(active, tm, 0.0), tables.clusters.sort_box
     )
+    c = tables.clusters.sort_box.shape[0]
+    n_live = int((np.asarray(keys) < c * (c + 1)).sum())
+    assert (n_live <= n * frac) == (dead_frac == 0.7), n_live
 
-    scene = _scene()
-    tables = scene.tables()
-    n = 2000
-    o = rng_np.uniform(-3, 3, (n, 3)).astype(np.float32)
-    d = rng_np.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tmax = jnp.full((n,), F32_MAX, jnp.float32)
-    kw = dict(
-        interpret=True, tile=128, tiles_per_step=4, exact_pairs=False,
-        gang=2, gang_frac=0, lockstep=True, derive_uv=False,
+    full = sorted_trace(fn, o, d, tm, tables, active)
+    sliced = sorted_trace(
+        fn, o, d, tm, tables, active, live_slice=frac, tail=tail
     )
-    full = trace_closest_clustered_pallas(
-        jnp.asarray(o), jnp.asarray(d), tmax, tables, None, **kw
-    )
-    import jax
-
-    for cap in (1, 2):
-        hit, stop = trace_closest_clustered_pallas(
-            jnp.asarray(o), jnp.asarray(d), tmax, tables, None,
-            cap=cap, return_stop=True, **kw
-        )
-        surv = np.asarray(
-            jax.lax.bitcast_convert_type(hit.t, jnp.int32)
-        ) > np.asarray(stop)
-        changed = np.asarray(hit.face) != np.asarray(full.face)
-        assert not np.any(changed & ~surv), (
-            f"cap={cap}: {int((changed & ~surv).sum())} changed rays "
-            "not flagged as survivors"
-        )
-        # unchanged-complete rays must dominate: the flag is useful,
-        # not everything-survives
-        assert surv.sum() < n
-
-
-def test_pallas_sched_bit_identical(rng_np):
-    """The schedule-fed kernel (_kernel_sched: XLA-sorted per-tile
-    cluster schedules in SMEM, J-block rounds, deferred bound) must
-    return the same faces as the drain-based serial kernel — it drains
-    the same shortlist in the same near order; speculative past-the-
-    bound block entries are idempotent in the packed-key min merge.
-    t is re-derived exactly from the face, so it matches bit-for-bit
-    whenever faces do (despite the J-tag widening the key's slot
-    bits)."""
-    from webgpu_raytracing_tpu.ops.cluster_pallas import (
-        trace_closest_clustered_pallas,
-    )
-
-    scene = _scene()
-    tables = scene.tables()
-    n = 1000  # pads to 8 tiles of 128 (tail partially dead)
-    o = rng_np.uniform(-3, 3, (n, 3)).astype(np.float32)
-    d = rng_np.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tmax = jnp.full((n,), F32_MAX, jnp.float32)
-    base = trace_closest_clustered_pallas(
-        jnp.asarray(o), jnp.asarray(d), tmax, tables, tile=128,
-        interpret=True, exact_pairs=False,
-    )
-    # excl path: pretend each ray's source face is its base hit (the
-    # exclusion must keep working without a drain)
-    excl = jnp.maximum(jnp.asarray(base.face), 0)
-    for jblk, tile, tps in ((1, 128, 2), (2, 128, 4), (4, 128, 8),
-                            (8, 128, 2), (4, 256, 4)):
-        got = trace_closest_clustered_pallas(
-            jnp.asarray(o), jnp.asarray(d), tmax, tables, tile=tile,
-            interpret=True, exact_pairs=False, sched_rounds=jblk,
-            tiles_per_step=tps,
-        )
-        np.testing.assert_array_equal(
-            np.asarray(got.face), np.asarray(base.face)
-        )
-        np.testing.assert_array_equal(np.asarray(got.t), np.asarray(base.t))
-    base_x = trace_closest_clustered_pallas(
-        jnp.asarray(o), jnp.asarray(d), tmax, tables, tile=128,
-        interpret=True, exact_pairs=False, excl_code=excl,
-    )
-    got_x = trace_closest_clustered_pallas(
-        jnp.asarray(o), jnp.asarray(d), tmax, tables, tile=128,
-        interpret=True, exact_pairs=False, excl_code=excl,
-        sched_rounds=4, tiles_per_step=4,
-    )
-    np.testing.assert_array_equal(
-        np.asarray(got_x.face), np.asarray(base_x.face)
-    )
+    for a, b in zip(jax.tree.leaves(full), jax.tree.leaves(sliced)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    if mode == "closest":
+        assert (np.asarray(full.face) >= 0).sum() > 100

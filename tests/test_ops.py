@@ -257,8 +257,8 @@ def test_det_trig_correctly_rounded():
     a ~1e-6 sliver of rounding-boundary ties, across the ranges the
     renderer draws from (sampler phases [0, 2π), raygen angles, and
     adversarial near-k·π/2 arguments where Cody-Waite reduction cancels).
-    This is the CPU↔TPU determinism primitive: its bits are a pure
-    function of f32 mul/add, identical on both backends."""
+    This is the cross-backend determinism primitive: its bits are a pure
+    function of f32 mul/add, identical on every backend."""
     import jax
 
     from webgpu_raytracing_tpu.ops.detmath import det_sincos, det_tan

@@ -20,33 +20,20 @@ from webgpu_raytracing_tpu.camera import Camera
 from webgpu_raytracing_tpu.config import RenderSettings
 from webgpu_raytracing_tpu.models.scene import load_scene
 from webgpu_raytracing_tpu.renderer import Renderer
+from webgpu_raytracing_tpu.utils.paths import ASSETS_DIR
+from webgpu_raytracing_tpu.validation.envs import synthetic_equirect
 
 
-OBJ = "/root/reference/assets/raytraced-scene.obj"
-MTL = "/root/reference/assets/raytraced-scene.mtl"
+OBJ = os.path.join(ASSETS_DIR, "raytraced-scene.obj")
+MTL = os.path.join(ASSETS_DIR, "raytraced-scene.mtl")
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "wgsl_reference_48x48.npz")
 
 
-def synthetic_equirect(h=64, w=128):
-    """Deterministic stand-in for the reference's 4k EXR skybox (the asset
-    isn't bundled in this environment): a smooth sky gradient with a bright
-    sun patch, shared verbatim by both implementations — exercising the
-    identical equirect nearest-texel fetch path (render.ts:932-940)."""
-    ys = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
-    xs = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
-    r = 0.4 + 0.5 * ys + 0.05 * np.sin(xs * 12.0)
-    g = 0.5 + 0.4 * ys + 0.05 * np.cos(xs * 7.0)
-    b = 0.8 + 0.2 * ys
-    img = np.stack(
-        [np.broadcast_to(c, (h, w)) for c in (r, g, b)], axis=-1
-    ).astype(np.float32)
-    sun = np.exp(
-        -(((ys - 0.75) * 8.0) ** 2 + ((xs - 0.3) * 8.0) ** 2)
-    ).astype(np.float32)
-    return img + 20.0 * sun[..., None] * np.array([1.0, 0.9, 0.7], np.float32)
-
-pytestmark = pytest.mark.skipif(
-    not os.path.exists(OBJ), reason="reference assets unavailable"
+needs_assets = pytest.mark.skipif(
+    not os.path.exists(OBJ), reason="bundled scene assets not in the checkout"
+)
+GOLDEN_ANALYTIC = os.path.join(
+    os.path.dirname(__file__), "golden", "wgsl_analytic_48x48.npz"
 )
 
 
@@ -62,7 +49,8 @@ def _rmse(a, b):
 # few % of pixels. These tests establish SEMANTIC equivalence with the
 # reference, so they run the fusion-stable configuration; the production
 # path's closeness is separately bounded by the RMSE assertions (which
-# 1-ulp noise cannot move) and by tools/parity_tpu.py on hardware.
+# 1-ulp noise cannot move) and by chip_smoke.py's wgsl_parity phase on
+# the GPU.
 _PIN = {"chained_sort": False}
 
 
@@ -87,6 +75,7 @@ def env():
     return synthetic_equirect()
 
 
+@needs_assets
 def test_live_sim_vs_renderer_rmse(env):
     from webgpu_raytracing_tpu.validation.wgsl_sim import WGSLReference
 
@@ -106,6 +95,7 @@ def test_live_sim_vs_renderer_rmse(env):
     assert rmse <= 1e-2, f"cross-implementation RMSE {rmse}"
 
 
+@needs_assets
 @pytest.mark.parametrize(
     "mode",
     [
@@ -166,6 +156,7 @@ def test_live_sim_vs_renderer_rmse_modes(env, mode):
     )
 
 
+@needs_assets
 def test_golden_vs_renderer_rmse(env):
     if not os.path.exists(GOLDEN):
         pytest.skip("golden not generated")
@@ -177,28 +168,22 @@ def test_golden_vs_renderer_rmse(env):
     assert rmse <= 1e-2, f"cross-implementation RMSE vs golden {rmse}"
 
 
-def test_golden_vs_real_kernel(env):
-    """The PRODUCTION kernel path (pallas_interpret = the real Mosaic
-    kernel under the interpreter) at the r3 perf defaults — plain bf16x3
-    single-best rounds, NO exact adjudication, source-face-duplicate
-    exclusion — against the WGSL-semantics golden. Measured bit-identical
-    when this landed (every decision the bf16x3 arithmetic made agreed
-    with exact f32 on all 48²·4spp paths once self-face impostors were
-    excluded); the assertion leaves headroom for a handful of true
-    knife-edge flips so a future golden regeneration can't flake it,
-    while still failing loudly on any systematic error class (the
-    pre-exclusion failure measured RMSE 0.30 / 352 mismatched pixels).
-    """
+@needs_assets
+def test_golden_vs_real_kernel(env, interpreted_kernel):
+    """The GPU traversal path (the Triton kernel, here under the Pallas
+    interpreter) against the WGSL-semantics golden. The kernel decides
+    intersections with exact f32 Möller–Trumbore in the reference's
+    order, so the frame must match everywhere except isolated knife-edge
+    flips."""
     if not os.path.exists(GOLDEN):
         pytest.skip("golden not generated")
     z = np.load(GOLDEN)
     size = int(z["size"][0])
     settings = RenderSettings(
         width=size, height=size, environment="equirect",
-        sample_count=1, bounces_depth=4, traversal="pallas_interpret",
+        sample_count=1, bounces_depth=4, traversal="triton",
         **_PIN,
     )
-    assert not settings.exact_pairs, "test targets the plain-round default"
     scene = load_scene(OBJ, MTL)
     r = Renderer(scene, settings, env_data=env)
     for seed in z["seeds"]:
@@ -208,20 +193,32 @@ def test_golden_vs_real_kernel(env):
     flipped = np.abs(a - b).max(axis=-1) > 1e-6
     mismatched = int(flipped.sum())
     rmse = _rmse(a, b)
-    rmse_rest = _rmse(
-        np.where(flipped[..., None], b, a), b
-    )  # everything except the flipped pixels must be BITWISE clean
-    # Three-part bar replacing the old `rmse <= 1e-3 and mismatched <= 5`
-    # (r4): the deterministic trig/sqrt/product rewrites that close the
-    # TPU↔CPU raygen divergence legitimately move XLA:CPU sampler draws
-    # by 1 ulp (XLA:CPU trig is not correctly rounded; the det versions
-    # are), which flips ONE knife-edge path on this golden (1/2304,
-    # rmse 0.0073 — a single bright-path flip exceeds 1e-3 at 48² all
-    # by itself). Decorrelated knife-edge flips are the anticipated
-    # class; systematic error classes still fail loudly: the
-    # pre-exclusion bug was 352 mismatched pixels (mismatched bar), and
-    # any sub-threshold drift on agreeing pixels trips rmse_rest.
+    rmse_rest = _rmse(np.where(flipped[..., None], b, a), b)
     assert rmse_rest <= 1e-7 and mismatched <= 5 and rmse <= 1e-2, (
-        f"real-kernel parity regression: rmse {rmse} (rest {rmse_rest}), "
+        f"kernel parity regression: rmse {rmse} (rest {rmse_rest}), "
         f"{mismatched}/{a.shape[0] * a.shape[1]} mismatched"
     )
+
+
+@pytest.mark.parametrize("traversal", ["clustered", "threaded", "triton"])
+def test_analytic_golden_vs_renderer(env, interpreted_kernel, traversal):
+    """The seeded analytic scene (no asset files) at 48² against the WGSL
+    simulator's golden (tools/make_reference_golden.py analytic), every
+    traversal backend (the kernel under the interpreter): RMSE within
+    the correctness clause, and on the CPU every pixel bit-identical."""
+    from webgpu_raytracing_tpu.models.analytic import analytic_scene
+
+    z = np.load(GOLDEN_ANALYTIC)
+    size = int(z["size"][0])
+    settings = RenderSettings(
+        width=size, height=size, environment="equirect",
+        sample_count=1, bounces_depth=4, traversal=traversal, **_PIN,
+    )
+    r = Renderer(analytic_scene(), settings, env_data=env)
+    for seed in z["seeds"]:
+        r.step(seed=int(seed))
+    ours = np.asarray(r.buffers.image)
+    np.testing.assert_array_equal(ours[..., 3], z["image"][..., 3])
+    a, b = _normalized(ours), _normalized(z["image"])
+    assert _rmse(a, b) <= 1e-2
+    np.testing.assert_array_equal(a, b)

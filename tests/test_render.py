@@ -244,80 +244,31 @@ def test_sharded_reprojection_matches_single_chip():
     assert rays > 0
 
 
-def test_pallas_interpret_full_frame_matches_clustered():
-    """Drive the PRODUCTION Pallas kernel through the whole frame path
-    (raygen -> predictor -> sorted bounce traces -> accumulation) under
-    the interpreter, against the XLA clustered backend. The two may
-    legitimately flip isolated grazing-edge intersection decisions
-    (bf16 3-pass vs f32 dense); everywhere else the frame must agree."""
+@pytest.mark.parametrize("nee", [False, True], ids=["paths", "nee"])
+def test_pallas_interpret_full_frame_matches_clustered(
+    interpreted_kernel, nee
+):
+    """Drive the Triton kernel (under the interpreter) through the whole
+    frame path — raygen, primary trace, sorted bounce legs with live
+    slicing, NEE shadow legs, accumulation — against the XLA clustered
+    backend. Both decide intersections with exact f32 Möller–Trumbore,
+    so the frames may differ only where the XLA path's top-2 candidate
+    preselection drops a winner (isolated pixels at most)."""
     scene = _mini_scene()
     imgs = {}
-    for backend in ("clustered", "pallas_interpret"):
+    for backend in ("clustered", "triton"):
         s = RenderSettings(
             width=16, height=16, bounces_depth=3, sample_count=1,
-            environment="procedural", traversal=backend, trace_tile=128,
+            environment="procedural", traversal=backend, trace_tile=64,
+            next_event_estimation=nee,
         )
         r = Renderer(scene, s, base_seed=11)
         r.step()
         imgs[backend] = np.asarray(r.buffers.image)
-    a, b = imgs["clustered"], imgs["pallas_interpret"]
+    a, b = imgs["clustered"], imgs["triton"]
     np.testing.assert_array_equal(a[..., 3], b[..., 3])  # equal spp
     close = np.all(np.abs(a - b) <= 1e-5 + 1e-4 * np.abs(a), axis=-1)
     assert close.mean() >= 0.98, f"{(~close).sum()} pixels differ"
-
-
-def test_multipass_frame_bit_identical():
-    """multipass_cap (capped rounds + recompaction, the r4 work-volume
-    lever) through the FULL frame path — raygen, predictor-bounded
-    primaries, sorted bounce legs with exclusion codes, accumulation —
-    must be bit-identical to the single-pass frame. Both frames drive
-    the production Pallas kernel under the interpreter with the
-    lockstep gang-all defaults the cap requires."""
-    scene = _mini_scene()
-    imgs = {}
-    for label, kw in (("one", {}), ("multi", dict(multipass_cap=2))):
-        r = Renderer(
-            scene,
-            RenderSettings(
-                width=16, height=16, bounces_depth=3, sample_count=1,
-                environment="procedural", traversal="pallas_interpret",
-                trace_tile=128, tiles_per_step=2, exact_pairs=False,
-                trace_gang=2, trace_gang_frac=0, lockstep_tiles=True,
-                **kw,
-            ),
-            base_seed=11,
-        )
-        r.step()
-        imgs[label] = np.asarray(r.buffers.image)
-    np.testing.assert_array_equal(imgs["one"], imgs["multi"])
-
-
-def test_binned_frame_bit_identical():
-    """binned_sort (per-ray binned scheduling, the r5 ceiling-ledger
-    lever) through the FULL frame path — raygen, predictor-bounded
-    primaries, sorted bounce legs with exclusion codes, accumulation —
-    must be bit-identical to the drain-kernel frame. gang=0 in both
-    arms so every packed key truncates t at the same slot-bit
-    granularity (the binned kernel's contract)."""
-    scene = _mini_scene()
-    for nee in (False, True):  # True adds light-NEE shadow legs →
-        imgs = {}  # exercises binned_trace_any (_trace_any hook)
-        for label, kw in (("drain", {}), ("binned", dict(binned_sort=True))):
-            r = Renderer(
-                scene,
-                RenderSettings(
-                    width=16, height=16, bounces_depth=3, sample_count=1,
-                    environment="procedural", traversal="pallas_interpret",
-                    trace_tile=128, tiles_per_step=2, exact_pairs=False,
-                    trace_gang=0, trace_gang_frac=0, lockstep_tiles=True,
-                    next_event_estimation=nee,
-                    **kw,
-                ),
-                base_seed=11,
-            )
-            r.step()
-            imgs[label] = np.asarray(r.buffers.image)
-        np.testing.assert_array_equal(imgs["drain"], imgs["binned"])
 
 
 def test_frame_slabs_bit_identical():

@@ -1,16 +1,12 @@
-"""Shadow-terminator any-hit check (ADVICE r2 #3).
+"""Shadow-terminator any-hit check.
 
-The Pallas kernel's packed (t | slot) keys narrow hit acceptance by one
-truncation bucket at the t_max boundary (ops/cluster_pallas.py:95-101):
-a shadow-ray occluder whose t falls in the same 2^-sl_bits-relative
-bucket as the light's own distance can read as unoccluded. These tests
-pin down that the leak window is EXACTLY that knife edge — any occluder
-even slightly inside the light distance is still seen — so no visible
-light leak is possible from geometry that isn't touching the light.
-
-Reference semantics: rayIntersectBVHAnyHit with interval (0, t_max)
-(render.ts:468-480); a WGSL exact compare resolves the same knife edge
-arbitrarily via f32 rounding of t itself.
+A shadow ray toward a light at distance t_max must see every occluder
+strictly inside (0, t_max), however close to the light it sits
+(reference semantics: rayIntersectBVHAnyHit with interval (0, t_max),
+render.ts:468-480). The Triton kernel tests triangles with exact f32
+Möller–Trumbore and compares ``t < t_max`` on the f32 value itself, so
+its decisions at the light's distance must equal the threaded oracle's
+bit for bit — no acceptance window is lost to key packing.
 """
 
 import numpy as np
@@ -18,9 +14,7 @@ import jax.numpy as jnp
 
 from webgpu_raytracing_tpu.models.scene import scene_from_facesets
 from webgpu_raytracing_tpu.models.test_models import ground_plane, make_model
-from webgpu_raytracing_tpu.ops.cluster_pallas import (
-    trace_closest_clustered_pallas,
-)
+from webgpu_raytracing_tpu.ops.cluster_triton import trace_any_triton
 from webgpu_raytracing_tpu.ops.traverse import trace_any
 
 
@@ -62,18 +56,15 @@ def _shadow_rays(rng_np, n=256, t_light=2.0):
     return jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax)
 
 
-def _kernel_occluded(o, d, tmax, tables, gang):
-    hit = trace_closest_clustered_pallas(
-        o, d, tmax, tables, tile=128, interpret=True, any_hit=True,
-        gang=gang, gang_frac=1,
+def _kernel_occluded(o, d, tmax, tables, tile):
+    return np.asarray(
+        trace_any_triton(o, d, tmax, tables, tile=tile, interpret=True)
     )
-    return np.asarray(hit.face) >= 0
 
 
 def test_occluder_inside_light_distance_always_occludes(rng_np):
-    """Occluders at 0.5x, 0.999x and 1-1e-4 of the light distance (all
-    outside the truncation bucket) must occlude every shadow ray on the
-    real kernel, with and without gang rounds."""
+    """Occluders at 0.5x, 0.999x and 1-1e-4 of the light distance must
+    occlude every shadow ray on the kernel, at two tile sizes."""
     t_light = 2.0
     for frac in (0.5, 0.999, 1.0 - 1e-4):
         scene = _shadow_scene(-frac * t_light)
@@ -81,31 +72,21 @@ def test_occluder_inside_light_distance_always_occludes(rng_np):
         o, d, tmax = _shadow_rays(rng_np, t_light=t_light)
         ref = np.asarray(trace_any(o, d, tmax, tables))
         assert ref.all(), "oracle sanity: every ray passes the occluder"
-        for gang in (0, 4):
-            got = _kernel_occluded(o, d, tmax, tables, gang)
-            np.testing.assert_array_equal(got, ref), (frac, gang)
+        for tile in (64, 128):
+            got = _kernel_occluded(o, d, tmax, tables, tile)
+            np.testing.assert_array_equal(got, ref), (frac, tile)
 
 
 def test_knife_edge_leak_confined_to_truncation_bucket(rng_np):
-    """An occluder INSIDE the same packed-key truncation bucket as t_max
-    may read unoccluded — assert any divergence from the oracle is
-    confined to rays whose true hit t shares t_max's truncated key
-    (documented knife edge, cluster_pallas.py:95-101)."""
+    """An occluder 2^-18 relative inside the light distance — the knife
+    edge a packed-key kernel could lose — and one exactly at it: the
+    kernel's blocked set must equal the oracle's in both cases (the
+    leak window is empty)."""
     t_light = 2.0
-    # 2^-18 relative: inside the gang=4 bucket (sl_bits=9 -> ~2^-15)
-    scene = _shadow_scene(-(1.0 - 2.0**-18) * t_light)
-    tables = scene.tables()
-    o, d, tmax = _shadow_rays(rng_np, t_light=t_light)
-    ref = np.asarray(trace_any(o, d, tmax, tables))
-    assert ref.all()
-    for gang, sl_bits in ((0, 7), (4, 9)):
-        got = _kernel_occluded(o, d, tmax, tables, gang)
-        leaked = ref & ~got
-        # the true t here IS the occluder distance along -z
-        t_true = np.float32((1.0 - 2.0**-18) * t_light)
-        key_t = np.float32(t_true).view(np.int32) >> sl_bits
-        key_max = np.float32(t_light).view(np.int32) >> sl_bits
-        if key_t != key_max:
-            assert not leaked.any(), (gang, int(leaked.sum()))
-        # else: leak allowed (knife edge) — nothing to assert beyond
-        # the previous test's guarantee outside the bucket
+    for frac in (1.0 - 2.0**-18, 1.0):
+        scene = _shadow_scene(-frac * t_light)
+        tables = scene.tables()
+        o, d, tmax = _shadow_rays(rng_np, t_light=t_light)
+        ref = np.asarray(trace_any(o, d, tmax, tables))
+        got = _kernel_occluded(o, d, tmax, tables, 64)
+        np.testing.assert_array_equal(got, ref)

@@ -47,19 +47,16 @@ def test_stress_scene_builds_and_traces():
 
 @pytest.mark.slow
 def test_pallas_hbm_path_for_large_scenes(rng_np):
-    """Cluster tables above the VMEM budget use the HBM-streaming kernel
-    (per-round DMA) and must agree with the threaded oracle."""
-    from webgpu_raytracing_tpu.ops.cluster_pallas import (
-        trace_closest_clustered_pallas,
+    """A cluster table of tens of MB (the size class that once needed a
+    streaming kernel): the Triton kernel reads it from device memory like
+    any other and must agree with the threaded oracle."""
+    from webgpu_raytracing_tpu.ops.cluster_triton import (
+        trace_clustered_triton,
     )
 
     scene = stress_scene(60_000)
     tables = scene.tables()
-    nbytes = (
-        tables.clusters.mat_b.shape[0]
-        * 16 * tables.clusters.mat_b.shape[2] * 4
-    )
-    assert nbytes > 12 * 1024 * 1024  # actually exercises the HBM path
+    assert tables.clusters.mat_b.nbytes > 12 * 1024 * 1024
 
     n = 256
     o = rng_np.uniform(-10, 10, (n, 3)).astype(np.float32)
@@ -69,26 +66,21 @@ def test_pallas_hbm_path_for_large_scenes(rng_np):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     tmax = jnp.full((n,), F32_MAX, jnp.float32)
     ref = trace_closest(jnp.asarray(o), jnp.asarray(d), tmax, tables)
-    pk = trace_closest_clustered_pallas(
-        jnp.asarray(o), jnp.asarray(d), tmax, tables, tile=128,
+    pk = trace_clustered_triton(
+        jnp.asarray(o), jnp.asarray(d), tmax, tables, tile=64,
         interpret=True,
     )
     hits = np.asarray(ref.face) >= 0
     assert hits.sum() > 50
-    np.testing.assert_array_equal(np.asarray(pk.face) >= 0, hits)
-    np.testing.assert_allclose(
-        np.asarray(pk.t)[hits], np.asarray(ref.t)[hits], rtol=5e-4,
-        atol=1e-4,
-    )
+    np.testing.assert_array_equal(np.asarray(pk.face), np.asarray(ref.face))
+    np.testing.assert_array_equal(np.asarray(pk.t), np.asarray(ref.t))
 
 
 @pytest.mark.slow
 def test_pallas_hbm_any_hit(rng_np):
-    """hbm + any_hit combination: double-buffered prefetch with the
-    shadow-ray termination rule must agree with the threaded oracle."""
-    from webgpu_raytracing_tpu.ops.cluster_pallas import (
-        trace_closest_clustered_pallas,
-    )
+    """Any-hit on the same large table: the shadow-ray termination rule
+    must agree with the threaded oracle."""
+    from webgpu_raytracing_tpu.ops.cluster_triton import trace_any_triton
     from webgpu_raytracing_tpu.ops.traverse import trace_any
 
     scene = stress_scene(60_000)
@@ -102,10 +94,8 @@ def test_pallas_hbm_any_hit(rng_np):
     for tmax_val in (F32_MAX, 6.0):
         tmax = jnp.full((n,), tmax_val, jnp.float32)
         ref = trace_any(jnp.asarray(o), jnp.asarray(d), tmax, tables)
-        pk = trace_closest_clustered_pallas(
-            jnp.asarray(o), jnp.asarray(d), tmax, tables, tile=128,
-            interpret=True, any_hit=True,
+        pk = trace_any_triton(
+            jnp.asarray(o), jnp.asarray(d), tmax, tables, tile=64,
+            interpret=True,
         )
-        np.testing.assert_array_equal(
-            np.asarray(pk.face) >= 0, np.asarray(ref)
-        )
+        np.testing.assert_array_equal(np.asarray(pk), np.asarray(ref))

@@ -1,4 +1,4 @@
-"""Two-level (supercluster) traversal: builder invariants + interpret-mode
+"""Two-level (supercluster) tables: builder invariants + interpret-mode
 kernel equivalence with the threaded oracle (the large-scene path,
 BASELINE config #5; no reference counterpart — render.ts has no TLAS)."""
 
@@ -14,9 +14,7 @@ from webgpu_raytracing_tpu.models.test_models import (
     unit_cube_model,
     uv_sphere,
 )
-from webgpu_raytracing_tpu.ops.cluster_pallas import (
-    trace_closest_clustered_pallas,
-)
+from webgpu_raytracing_tpu.ops.cluster_triton import trace_clustered_triton
 from webgpu_raytracing_tpu.ops.traverse import trace_any, trace_closest
 
 
@@ -74,40 +72,12 @@ def test_two_level_interpret_matches_threaded(rng_np):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     tmax = jnp.full((n,), F32_MAX, jnp.float32)
     ref = trace_closest(jnp.asarray(o), jnp.asarray(d), tmax, t1)
-    pk = trace_closest_clustered_pallas(
-        jnp.asarray(o), jnp.asarray(d), tmax, t2, tile=128, interpret=True
+    pk = trace_clustered_triton(
+        jnp.asarray(o), jnp.asarray(d), tmax, t2, tile=64, interpret=True
     )
-    hits = np.asarray(ref.face) >= 0
-    np.testing.assert_array_equal(np.asarray(pk.face) >= 0, hits)
-    np.testing.assert_allclose(
-        np.asarray(pk.t)[hits], np.asarray(ref.t)[hits], rtol=2e-4,
-        atol=1e-5,
-    )
-
-
-def test_two_level_approx_div_matches_threaded(rng_np):
-    """approx_div plumbing on the two-level kernel: same hit decisions
-    and exact re-derived t (interpret mode)."""
-    scene = _scene()
-    t1 = scene.tables()
-    t2 = scene.tables(cluster_size=16, group_size=4)
-    n = 256
-    o = rng_np.uniform(-3, 3, (n, 3)).astype(np.float32)
-    o[:, 2] = rng_np.uniform(0, 2, n)
-    d = rng_np.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tmax = jnp.full((n,), F32_MAX, jnp.float32)
-    ref = trace_closest(jnp.asarray(o), jnp.asarray(d), tmax, t1)
-    pk = trace_closest_clustered_pallas(
-        jnp.asarray(o), jnp.asarray(d), tmax, t2, tile=128,
-        interpret=True, approx_div=True,
-    )
-    hits = np.asarray(ref.face) >= 0
-    np.testing.assert_array_equal(np.asarray(pk.face) >= 0, hits)
-    np.testing.assert_allclose(
-        np.asarray(pk.t)[hits], np.asarray(ref.t)[hits], rtol=2e-4,
-        atol=1e-5,
-    )
+    # exact arithmetic in both: same faces, bit-equal t
+    np.testing.assert_array_equal(np.asarray(pk.face), np.asarray(ref.face))
+    np.testing.assert_array_equal(np.asarray(pk.t), np.asarray(ref.t))
 
 
 def test_two_level_any_hit_interpret(rng_np):
@@ -120,31 +90,8 @@ def test_two_level_any_hit_interpret(rng_np):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     tmax = jnp.full((n,), F32_MAX, jnp.float32)
     ref = trace_any(jnp.asarray(o), jnp.asarray(d), tmax, t1)
-    pk = trace_closest_clustered_pallas(
-        jnp.asarray(o), jnp.asarray(d), tmax, t2, tile=128,
+    pk = trace_clustered_triton(
+        jnp.asarray(o), jnp.asarray(d), tmax, t2, tile=64,
         interpret=True, any_hit=True,
     )
     np.testing.assert_array_equal(np.asarray(pk.face) >= 0, np.asarray(ref))
-
-
-def test_kernel_near_interpret_matches_threaded(rng_np):
-    """kernel_near=True (in-kernel tile-nears; measured-out on real frames
-    but kept as an option) must stay result-identical."""
-    scene = _scene()
-    tables = scene.tables()
-    n = 256
-    o = rng_np.uniform(-3, 3, (n, 3)).astype(np.float32)
-    d = rng_np.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tmax = jnp.full((n,), F32_MAX, jnp.float32)
-    ref = trace_closest(jnp.asarray(o), jnp.asarray(d), tmax, tables)
-    pk = trace_closest_clustered_pallas(
-        jnp.asarray(o), jnp.asarray(d), tmax, tables, tile=128,
-        interpret=True, kernel_near=True,
-    )
-    hits = np.asarray(ref.face) >= 0
-    np.testing.assert_array_equal(np.asarray(pk.face) >= 0, hits)
-    np.testing.assert_allclose(
-        np.asarray(pk.t)[hits], np.asarray(ref.t)[hits], rtol=2e-4,
-        atol=1e-5,
-    )

@@ -29,7 +29,8 @@ from webgpu_raytracing_tpu.config import RenderSettings
 from webgpu_raytracing_tpu.models.scene import load_scene
 from webgpu_raytracing_tpu.validation.wgsl_sim import WGSLReference
 
-from test_reference_parity import synthetic_equirect
+from webgpu_raytracing_tpu.utils.paths import ASSETS_DIR
+from webgpu_raytracing_tpu.validation.envs import synthetic_equirect
 
 SIZE = 512
 # seeds 3..8 continue the checked-in [12345, 987654321]
@@ -44,8 +45,8 @@ def main():
         sample_count=1, bounces_depth=4,
     )
     scene = load_scene(
-        "/root/reference/assets/raytraced-scene.obj",
-        "/root/reference/assets/raytraced-scene.mtl",
+        os.path.join(ASSETS_DIR, "raytraced-scene.obj"),
+        os.path.join(ASSETS_DIR, "raytraced-scene.mtl"),
     )
     env = synthetic_equirect()
     view = Camera().view_matrix()

@@ -11,6 +11,7 @@ Run from the repo root:  python tools/parity_convergence.py
 Pure CPU; ~30-60 min (the simulator is a per-pixel Python loop).
 """
 
+import os
 import sys
 import time
 
@@ -25,7 +26,9 @@ from webgpu_raytracing_tpu.models.scene import load_scene
 from webgpu_raytracing_tpu.renderer import Renderer
 from webgpu_raytracing_tpu.validation.wgsl_sim import WGSLReference
 
-from test_reference_parity import _rmse as rmse_ref, synthetic_equirect
+from test_reference_parity import _rmse as rmse_ref
+from webgpu_raytracing_tpu.utils.paths import ASSETS_DIR
+from webgpu_raytracing_tpu.validation.envs import synthetic_equirect
 
 SIZE = 48
 FRAMES = 32  # 2 spp per frame -> 64 spp total
@@ -51,8 +54,8 @@ def main():
         sample_count=1, bounces_depth=4, chained_sort=False,
     )
     scene = load_scene(
-        "/root/reference/assets/raytraced-scene.obj",
-        "/root/reference/assets/raytraced-scene.mtl",
+        os.path.join(ASSETS_DIR, "raytraced-scene.obj"),
+        os.path.join(ASSETS_DIR, "raytraced-scene.mtl"),
     )
     env = synthetic_equirect()
     view = Camera().view_matrix()

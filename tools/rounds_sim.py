@@ -6,15 +6,15 @@ moment the cluster containing its winning face is processed (before
 that no processed cluster can beat it, since rounds run in near order
 and the winner is the global min)."""
 import os, sys
-os.environ["JAX_COMPILATION_CACHE_DIR"] = "/tmp/jax_cache_webgpu_raytracing_tpu"
-sys.path.insert(0, "/root/repo")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
-jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np
 
 from webgpu_raytracing_tpu.config import RenderSettings, F32_MAX, MIN_DIST
 from webgpu_raytracing_tpu.models.scene import load_scene
+from webgpu_raytracing_tpu.utils.paths import ASSETS_DIR, enable_compile_cache
 from webgpu_raytracing_tpu.ops.raygen import camera_rays
 from webgpu_raytracing_tpu.ops import rng
 from webgpu_raytracing_tpu.ops.cluster_trace import trace_closest_clustered
@@ -24,9 +24,10 @@ from webgpu_raytracing_tpu.ops.ray_sort import nearest_cluster_key
 W, H = 512, 384
 R = W * H
 settings = RenderSettings(width=W, height=H)
+enable_compile_cache()
 scene = load_scene(
-    "/root/reference/assets/raytraced-scene.obj",
-    "/root/reference/assets/raytraced-scene.mtl",
+    os.path.join(ASSETS_DIR, "raytraced-scene.obj"),
+    os.path.join(ASSETS_DIR, "raytraced-scene.mtl"),
 )
 tables = scene.tables()
 boxes = np.asarray(tables.clusters.box)
@@ -101,50 +102,3 @@ for tile in (128, 256, 512):
     print(f"tile={tile:3d}: rounds mean {r_.mean():6.1f} p95 {np.percentile(r_,95):5.0f} "
           f"p99 {np.percentile(r_,99):5.0f} | serial rounds/ray {r_.sum()/R:.3f} "
           f"| epilogue work/ray {per_ray_work:.1f}", flush=True)
-
-
-# --- gang-round histogram (VERDICT r3 item 2 evidence) ---------------------
-# The production kernel runs gang-of-K rounds on the heaviest 1/frac of
-# tiles by shortlist-union size; a heavy tile's serial rounds become
-# ceil(n/K). Histogram the per-tile SERIAL round counts before/after.
-
-def gang_hist(tile=128, gang=4, frac=8):
-    rounds_all = []
-    unions = []
-    for i in range(0, R, tile):
-        sel = order[i:i+tile]
-        nr = ray_nears(no[sel], inv[sel], btm[sel])
-        tile_near = nr.min(axis=0)
-        unions.append(int((tile_near < np.float32(np.inf)).sum()))
-        cl_order = np.argsort(tile_near, kind="stable")
-        best = btm[sel].copy()
-        bound = best.max()
-        rounds = 0
-        for c in cl_order:
-            if not (tile_near[c] < bound):
-                break
-            rounds += 1
-            wins = bwc[sel] == c
-            best = np.where(wins, bt[sel], best)
-            bound = best.max()
-        rounds_all.append(rounds)
-    r_ = np.array(rounds_all)
-    u_ = np.array(unions)
-    thresh = np.percentile(u_, 100.0 * (1 - 1.0 / frac))
-    heavy = u_ >= thresh
-    r_gang = np.where(heavy, -(-r_ // gang), r_)
-    edges = [0, 1, 2, 4, 8, 16, 32, 64, 128, 256, 1024]
-    def hist(x):
-        h, _ = np.histogram(x, bins=edges)
-        return " ".join(f"{int(n):5d}" for n in h)
-    print(f"tile={tile} gang={gang}@frac{frac}  bucket edges {edges[:-1]}")
-    print(f"  serial rounds gang=0 : {hist(r_)}   total {int(r_.sum())}")
-    print(f"  serial rounds gang={gang} : {hist(r_gang)}   total {int(r_gang.sum())}"
-          f"  (-{100*(1 - r_gang.sum()/max(r_.sum(),1)):.0f}% serial)")
-    print(f"  heavy tiles: {int(heavy.sum())}/{len(r_)}; their rounds share "
-          f"{100*r_[heavy].sum()/max(r_.sum(),1):.0f}% -> "
-          f"{100*r_gang[heavy].sum()/max(r_gang.sum(),1):.0f}%", flush=True)
-
-
-if __name__ == "__main__" and os.environ.get("GANG_HIST"):
-    gang_hist()

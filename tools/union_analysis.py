@@ -1,15 +1,15 @@
 """CPU study: per-tile cluster-union sizes (kernel-round proxy) for
 sort-key variants and tile sizes, on real bounce rays at 512x384."""
 import os, sys
-os.environ["JAX_COMPILATION_CACHE_DIR"] = "/tmp/jax_cache_webgpu_raytracing_tpu"
-sys.path.insert(0, "/root/repo")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
-jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np
 
 from webgpu_raytracing_tpu.config import RenderSettings, F32_MAX, MIN_DIST
 from webgpu_raytracing_tpu.models.scene import load_scene
+from webgpu_raytracing_tpu.utils.paths import ASSETS_DIR, enable_compile_cache
 from webgpu_raytracing_tpu.ops.raygen import camera_rays
 from webgpu_raytracing_tpu.ops import rng
 from webgpu_raytracing_tpu.ops.cluster_trace import trace_closest_clustered
@@ -18,9 +18,10 @@ from webgpu_raytracing_tpu.ops.intersect import safe_inv_dir
 W, H = 512, 384
 R = W * H
 settings = RenderSettings(width=W, height=H)
+enable_compile_cache()
 scene = load_scene(
-    "/root/reference/assets/raytraced-scene.obj",
-    "/root/reference/assets/raytraced-scene.mtl",
+    os.path.join(ASSETS_DIR, "raytraced-scene.obj"),
+    os.path.join(ASSETS_DIR, "raytraced-scene.mtl"),
 )
 tables = scene.tables()
 boxes = np.asarray(tables.clusters.box)  # (C, 6)

@@ -1,8 +1,8 @@
-"""webgpu_raytracing_tpu — a TPU-native progressive Monte Carlo path tracer.
+"""webgpu_raytracing_tpu — a progressive Monte Carlo path tracer in JAX.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of the WebGPU
 reference renderer (gidra5/webgpu-raytracing). The reference is a browser
-WGSL megakernel; this framework is built TPU-first instead:
+WGSL megakernel; this framework is built as array programs instead:
 
 * Scene geometry lives in SoA ``jnp`` arrays (faces as ``p0, e1, e2`` edge
   vectors, mirroring reference ``scene.ts:144-163``).
@@ -15,7 +15,7 @@ WGSL megakernel; this framework is built TPU-first instead:
   instead of data-dependent control flow (reference ``render.ts:1120-1225``).
 * Progressive accumulation state is an explicit, donated pytree
   (reference ``render.ts:1454-1507`` clear/accumulate semantics).
-* Multi-chip scaling shards the pixel dimension over a ``jax.sharding.Mesh``
+* Multi-device scaling shards the pixel dimension over a ``jax.sharding.Mesh``
   with the scene replicated (embarrassingly parallel; collectives only to
   assemble the final frame).
 """

@@ -21,27 +21,19 @@ import time
 
 import numpy as np
 
-DEFAULT_OBJ = "/root/reference/assets/raytraced-scene.obj"
-DEFAULT_MTL = "/root/reference/assets/raytraced-scene.mtl"
+from ..utils.paths import ASSETS_DIR
+
+DEFAULT_OBJ = os.path.join(ASSETS_DIR, "raytraced-scene.obj")
+DEFAULT_MTL = os.path.join(ASSETS_DIR, "raytraced-scene.mtl")
 CUBEMAP_FACES = [
     "right.jpg", "left.jpg", "top.jpg", "bottom.jpg", "front.jpg", "back.jpg",
 ]
 
 
 def _enable_cache():
-    import jax
+    from ..utils.paths import enable_compile_cache
 
-    try:
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.environ.get(
-                "JAX_COMPILATION_CACHE_DIR",
-                "/tmp/jax_cache_webgpu_raytracing_tpu",
-            ),
-        )
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    enable_compile_cache()
 
 
 def _parse_size(s: str):
@@ -103,30 +95,9 @@ def _build(args):
     )
     settings = _apply_opts(settings, getattr(args, "opt", []))
     if getattr(args, "scene", "bundled") == "analytic":
-        import numpy as _np
+        from ..models.analytic import analytic_scene
 
-        from ..models.scene import scene_from_facesets
-        from ..models.test_models import ground_plane, uv_sphere
-
-        scene = scene_from_facesets(
-            [
-                ("light", uv_sphere((0, 6, -6), 1.0, material_idx=0,
-                                    lat=8, lon=12)),
-                ("sphere_a", uv_sphere((-1.4, 1.0, -6), 1.0,
-                                       material_idx=1)),
-                ("sphere_b", uv_sphere((1.4, 0.8, -7), 0.8,
-                                       material_idx=2)),
-                ("plane", ground_plane(0.0, 20.0, material_idx=3)),
-            ],
-            _np.array(
-                [[0, 0, 0], [0.8, 0.3, 0.3], [0.3, 0.4, 0.8],
-                 [0.7, 0.7, 0.7]], _np.float32,
-            ),
-            _np.array(
-                [[12, 12, 12], [0, 0, 0], [0, 0, 0], [0, 0, 0]],
-                _np.float32,
-            ),
-        )
+        scene = analytic_scene()
     elif getattr(args, "scene", "bundled") == "stress1m":
         from ..models.stress import stress_scene
 
@@ -252,27 +223,28 @@ def cmd_orbit(args):
         print(f"wrote {out} (spp={r.counter * per_frame})")
 
 
+# BASELINE.json milestone configs (see BASELINE.md) as CLI argv.
+CONFIG_PRESETS = {
+    # 1: analytic spheres+plane, 256x256 @ 1 spp, direct lighting only
+    1: ["render", "--size", "256x256", "--spp", "1", "--bounces", "1",
+        "--projection", "perspective", "--scene", "analytic"],
+    # 2: bundled OBJ + BVH, 512x512 @ 4 spp, cubemap skybox
+    2: ["render", "--size", "512x512", "--spp", "4", "--env", "cubemap"],
+    # 3: OBJ + 4k HDR env importance sampling, 1080p @ 16 spp
+    3: ["render", "--size", "1080p", "--spp", "16", "--env", "equirect",
+        "--env-importance"],
+    # 4: progressive accumulation to 1024 spp with scripted orbit
+    4: ["orbit", "--size", "256x256", "--spp", "1024", "--frames", "4"],
+    # 5: 1M-triangle stress scene, 4K @ 256 spp. One slab: the whole
+    # 4K frame peaks at 25.5 GB of device memory on an 80 GB H100
+    # (PERF.md), so renderer.render_frame_slabs is not needed here
+    5: ["render", "--size", "4k", "--spp", "256", "--scene", "stress1m"],
+}
+
+
 def cmd_config(args):
     """BASELINE.json milestone configs (see BASELINE.md)."""
-    presets = {
-        # 1: analytic spheres+plane, 256x256 @ 1 spp, direct lighting only
-        1: ["render", "--size", "256x256", "--spp", "1", "--bounces", "1",
-            "--projection", "perspective", "--scene", "analytic"],
-        # 2: bundled OBJ + BVH, 512x512 @ 4 spp, cubemap skybox
-        2: ["render", "--size", "512x512", "--spp", "4", "--env", "cubemap"],
-        # 3: OBJ + 4k HDR env importance sampling, 1080p @ 16 spp
-        3: ["render", "--size", "1080p", "--spp", "16", "--env", "equirect",
-            "--env-importance"],
-        # 4: progressive accumulation to 1024 spp with scripted orbit
-        4: ["orbit", "--size", "256x256", "--spp", "1024", "--frames", "4"],
-        # 5: 1M-triangle stress scene, 4K @ 256 spp. frame_slabs=8 is
-        # required at 4K: the whole frame in one jit wants 44.75 GB of
-        # HBM (measured OOM vs the 15.75 GB chip — renderer.py
-        # render_frame_slabs)
-        5: ["render", "--size", "4k", "--spp", "256", "--scene",
-            "stress1m", "--opt", "frame_slabs=8"],
-    }
-    argv = presets[args.n]
+    argv = list(CONFIG_PRESETS[args.n])
     if args.output:
         argv += ["-o", args.output]
     if args.env_file:
@@ -354,8 +326,8 @@ def build_parser():
         sp.add_argument(
             "--opt", action="append", default=[], metavar="FIELD=VALUE",
             help="override any RenderSettings field by name (repeatable), "
-            "e.g. --opt chained_sort=0 --opt trace_gang=8 --opt "
-            "trace_tile=256 — the A/B knob for perf work",
+            "e.g. --opt chained_sort=1 --opt traversal=clustered --opt "
+            "trace_tile=128 — the A/B knob for perf work",
         )
 
     sp = sub.add_parser("render", help="render to PNG")

@@ -1,4 +1,4 @@
-"""BVH build (host, vectorized numpy) + skip-link threading for TPU.
+"""BVH build (host, vectorized numpy) + skip-link threading.
 
 Logical structure matches the reference builder (bv.ts:66-148): recursive
 median split along the largest AABB axis, preorder node layout (left child
@@ -6,7 +6,7 @@ implicitly at ``index + 1``, explicit ``right_idx``), leaves hold up to two
 face indices with ``-1`` sentinels, AABBs padded by ``BV_MIN_DELTA = 0.01``
 per degenerate axis (bv.ts:13, 54-61).
 
-TPU-native addition: after the build, every node gets a *skip link* (the
+Array-program addition: after the build, every node gets a *skip link* (the
 next preorder node when this subtree is rejected). This threads the tree so
 device traversal needs **no per-ray stack** — one uniform loop
 ``idx = hit ? idx + 1 : skip[idx]`` that vectorizes cleanly over a ray

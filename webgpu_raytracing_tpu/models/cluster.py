@@ -1,17 +1,16 @@
-"""Triangle clusters — the MXU-native acceleration structure.
+"""Triangle clusters — the clustered traversal's acceleration structure.
 
-Measurements on TPU (see ops/cluster_trace.py) show per-lane gathers are
-~100-400 Mrows/s while MXU matmuls are effectively free; a WGSL-style
-per-ray BVH descent (render.ts:433-640) is therefore the wrong shape for
-this hardware. Instead the scene is cut into *clusters* of up to
-``CLUSTER_SIZE`` triangles, stored as dense padded blocks:
+Instead of a WGSL-style per-ray BVH descent (render.ts:433-640), the
+clustered tracers (ops/cluster_trace.py, ops/cluster_triton.py) test a
+tile of rays against whole clusters of up to ``CLUSTER_SIZE`` triangles,
+stored as dense padded blocks:
 
 * cluster membership comes from the preorder BVH leaf sequence (leaves in
   preorder are spatially coherent), so consecutive runs of faces form
   tight boxes — the build is a single pass over the already-built tree;
 * each cluster's triangles are precomputed into the bilinear-form vectors
-  that let Möller–Trumbore run as ray-block × tri-block *matmuls*
-  (ops/cluster_trace.py derives the algebra);
+  that let the XLA path select Möller–Trumbore candidates with one
+  ray-block × tri-block product (ops/cluster_trace.py derives the algebra);
 * padding triangles are degenerate (n = 0 ⇒ det = 0 ⇒ culled by the
   backface test), so no masking is needed in the hot loop.
 """
@@ -134,10 +133,9 @@ def build_clusters(
     slab test misses; zero matrices ⇒ det = 0 ⇒ culled). Supers MAY span
     model boundaries — clusters reference global face ids, so the only
     cost is one looser super box per seam, far cheaper than per-model
-    padding on many-model scenes. The two-level traversal
-    (ops/cluster_pallas.py) then tests G child boxes in-kernel per super
-    instead of scanning all C cluster boxes per tile at the XLA level —
-    the large-scene scaling fix (BASELINE config #5).
+    padding on many-model scenes. The super boxes key the ray sort
+    (``ClusterTables.sort_box``) at C/G boxes per ray (BASELINE config
+    #5); the tracers still test every child box per tile.
     """
     boxes, ns, e1s, e2s, q1s, q2s, k0s, fids = [], [], [], [], [], [], [], []
 

@@ -1,6 +1,7 @@
 """ctypes binding to the native scene-ingestion runtime (runtime/loader.cpp).
 
-Compiles the shared library on first use (g++ -O3, cached by source hash)
+Compiles the shared library on first use (g++ -O3, cached by source hash
+under the checkout's ``build/native/``)
 and exposes drop-in replacements for :func:`models.obj.parse_obj` and
 :func:`models.bvh.build_bvh` producing byte-identical results. Used
 automatically by :func:`models.scene.load_scene` when available; set
@@ -27,9 +28,9 @@ _load_failed = False
 def _build_lib() -> Optional[str]:
     with open(_SRC, "rb") as fh:
         digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    cache_dir = os.environ.get(
-        "WRT_NATIVE_CACHE", os.path.join("/tmp", "wrt_native")
-    )
+    from ..utils.paths import BUILD_DIR
+
+    cache_dir = os.path.join(BUILD_DIR, "native")
     os.makedirs(cache_dir, exist_ok=True)
     so_path = os.path.join(cache_dir, f"libwrtloader_{digest}.so")
     if os.path.exists(so_path):

@@ -2,7 +2,7 @@
 
 The reference serializes faces/BVH/models/materials into four storage
 buffers with a bump allocator (scene.ts:39-60, 179-334). Here the same
-logical content becomes SoA ``jnp`` arrays, with one TPU-native change: the
+logical content becomes SoA ``jnp`` arrays, with one structural change: the
 per-model preorder BVHs are concatenated and their skip links rebased so
 that the whole scene is ONE threaded tree walk — the outer per-model loop
 of the reference traversal (render.ts:456-462) becomes falling off one
@@ -53,7 +53,7 @@ class SceneTables:
     # materials (scene.ts:241-269)
     mat_color: jax.Array  # (K, 3) f32
     mat_emission: jax.Array  # (K, 3) f32
-    # MXU-native clustered acceleration tables (ops/cluster_trace.py)
+    # clustered acceleration tables (ops/cluster_trace.py)
     clusters: object  # ClusterTables pytree
 
     @property
@@ -126,41 +126,16 @@ class Scene:
         from .cluster import build_clusters
 
         if group_size is None:
-            # two-level clustering once the per-tile XLA box scan over all
-            # clusters would dominate (large scenes, BASELINE config #5):
-            # ~C > 1024 means >1024-lane near vectors per 256-ray tile
+            # two-level clustering for large scenes (BASELINE config #5):
+            # the super boxes key the ray sort at C/G boxes per ray
             total_faces = sum(len(m.faces) for m in self.models)
-            # G=64 beats G=128 on chip (r4, tools/stress_bench.py on the
-            # 1M-tri scene: primary 1.98 vs 1.27 Mrays/s, bounce-
-            # inclusive 0.74 vs 0.59 — the r2 CPU study's -29% inner
-            # rounds at G=64, confirmed on hardware)
             group_size = 64 if total_faces > 1024 * cluster_size else 0
-        # two-sided duplicate map: face j is i's partner iff it has the
-        # same p0 with e1/e2 swapped (build_faces interleaves duplicates;
-        # geometric matching keeps this correct across single-sided
-        # analytic models and any concat order). Consumed by the Pallas
-        # kernel to exclude a bounce ray's own source-face duplicate —
-        # see ClusterTables.partner_code (ops/cluster_trace.py).
-        f_total = len(fs)
-        key = np.ascontiguousarray(
-            np.concatenate([fs.p0, fs.e1, fs.e2], axis=1)
-        ).view(np.dtype((np.void, 36))).ravel()
-        flip = np.ascontiguousarray(
-            np.concatenate([fs.p0, fs.e2, fs.e1], axis=1)
-        ).view(np.dtype((np.void, 36))).ravel()
-        order = np.argsort(key)
-        pos = np.searchsorted(key[order], flip)
-        cand = order[np.clip(pos, 0, f_total - 1)]
-        match = (pos < f_total) & (key[cand] == flip)
-        partner = np.where(match, cand, -1).astype(np.int32)
-
         clusters = pack_cluster_tables(
             build_clusters(
                 self.models,
                 cluster_size=cluster_size,
                 group_size=group_size,
-            ),
-            partner=partner,
+            )
         )
 
         return SceneTables(

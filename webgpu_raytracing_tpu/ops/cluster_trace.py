@@ -1,20 +1,18 @@
-"""Clustered ray tracing — the MXU-native traversal.
+"""Clustered ray tracing — the XLA traversal path.
 
-Why this exists: measured on TPU, per-lane gathers run at ~100 Mrows/s
-while f32 matmuls deliver >100 TFLOP/s. A per-ray BVH walk (the WGSL
-megakernel's shape, render.ts:433-640, and ops/traverse.py here) spends a
-gather per ray per node — the scarcest resource. This module reformulates
-traversal to spend the *abundant* resource instead:
+The scene is cut into clusters of ≤S triangles (models/cluster.py), and
+rays are grouped into coherent *tiles*. Each round, every tile picks its
+nearest unprocessed cluster (dense box tests, no per-ray tree walk) and
+tests all its rays against that cluster's triangles densely; rounds
+repeat until every tile has exhausted the clusters that could still beat
+its rays' best hits. ``ops/cluster_triton.py`` runs the same schedule as
+one GPU kernel with a loop per tile; this module's round loop is global
+(one ``while_loop`` over all tiles) and is the path off the GPU.
 
-* the scene is cut into clusters of ≤64 triangles (models/cluster.py);
-* Möller–Trumbore is decomposed into ray⊗triangle bilinear forms, so one
-  ray block vs one cluster is a single ``(T, 10) @ (10, 4·64)`` matmul
-  plus an elementwise epilogue — MXU work, no gathers;
-* rays are grouped into coherent *tiles*; each round, every tile picks its
-  nearest unprocessed hit cluster (dense box tests, no gathers) and tests
-  all its rays against that cluster's 64 triangles densely;
-* rounds repeat until every tile has exhausted clusters that could still
-  beat its rays' best hits.
+Candidates are selected with a bilinear form of Möller–Trumbore (one
+``(T, 10) @ (10, 4·S)`` product per tile and round), and the two nearest
+are re-tested with exact sequential arithmetic, so the decisions follow
+the reference's arithmetic rather than the product's.
 
 The Möller–Trumbore algebra (s = o − p0, h = d × e2, w = o × d,
 n = e1 × e2, q1 = p0 × e1, q2 = p0 × e2, k0 = p0·n):
@@ -56,40 +54,18 @@ class ClusterTables:
     """Device-resident cluster tables (a jit-able pytree).
 
     Two-level layout (large scenes, models/cluster.py ``group_size``):
-    ``super_box``/``child_box_t`` present, and supercluster ``s`` owns the
+    ``super_box`` present, and supercluster ``s`` owns the
     cluster rows ``[s*group, (s+1)*group)`` (pad rows: empty boxes, zero
-    matrices). Single-level: both None."""
+    matrices). Single-level: None."""
 
     box: jax.Array  # (C, 6) AABB min/max
     mat_b: jax.Array  # (C, 10, 4*S) the Möller–Trumbore bilinear matrix
     face_id: jax.Array  # (C, S) int32 global face ids (-1 pad)
-    # (C, 32, 4*S) bfloat16 pre-split B for the Pallas kernel's folded
-    # 2-pass matmul (mm_passes=2): rows [0:16) = b_lo, [16:32) = b_hi of
-    # the 16-row-padded f32 B (hi = bf16(B), lo = bf16(B - f32(hi))).
-    # hi·hi + (hi·lo + lo·hi) then needs TWO MXU issues —
-    # d(a_hi, b[16:32]) + d([a_hi|a_lo], b) — instead of three, and the
-    # per-round in-kernel B split vanishes; same bytes as the f32 table.
-    mat_b2: jax.Array | None = None
     super_box: jax.Array | None = None  # (C2, 6)
-    child_box_t: jax.Array | None = None  # (C2, 8, G): rows bmin.xyz, bmax.xyz
-    # (n_faces,) i32: cluster-slot code (cid·S + slot) of each face's
-    # two-sided duplicate (flipped winding, face.py build_faces), -1 when
-    # none. A bounce/shadow ray leaving a face can never legitimately
-    # re-hit that face's plane, but the Pallas kernel's bf16x3 t̂ of the
-    # duplicate (exact t ≈ -1e-5 from the offset origin) is
-    # sign-ambiguous — excluding the duplicate's slot in-kernel
-    # replicates the exact arithmetic's strict-positive-t rejection
-    # (measured: the dominant plain-mode error class, RMSE 0.30 → see
-    # ROADMAP round 3).
-    partner_code: jax.Array | None = None
 
     @property
     def n_clusters(self) -> int:
         return self.box.shape[0]
-
-    @property
-    def group(self) -> int:
-        return 0 if self.super_box is None else self.child_box_t.shape[2]
 
     @property
     def sort_box(self) -> jax.Array:
@@ -99,11 +75,8 @@ class ClusterTables:
         return self.box if self.super_box is None else self.super_box
 
 
-def pack_cluster_tables(clusters, partner=None) -> ClusterTables:
+def pack_cluster_tables(clusters) -> ClusterTables:
     """models.cluster.ClusterSet → ClusterTables (host → device).
-
-    ``partner`` is the optional (n_faces,) i32 two-sided-duplicate map
-    (scene.py); it is re-indexed into cluster-slot codes here.
 
     B layout (rows = ray-matrix components [o(0:3) | w(3:6) | d(6:9) | 1]):
       cols [0,S):   det   — rows d ← −n
@@ -123,55 +96,17 @@ def pack_cluster_tables(clusters, partner=None) -> ClusterTables:
     b[:, 6:9, 3 * s : 4 * s] = -np.transpose(clusters.q1, (0, 2, 1))
     import jax.numpy as _jnp
 
-    super_box = None
-    child_box_t = None
-    if clusters.super_box is not None:
-        g = clusters.group
-        c2 = clusters.super_box.shape[0]
-        # (C2, 8, G): rows 0:3 child bmin.xyz, 3:6 bmax.xyz (transposed so
-        # the in-kernel slab test broadcasts along lanes)
-        cb = np.zeros((c2, 8, g), dtype=np.float32)
-        grp = clusters.box.reshape(c2, g, 6)
-        cb[:, 0:3, :] = np.transpose(grp[:, :, 0:3], (0, 2, 1))
-        cb[:, 3:6, :] = np.transpose(grp[:, :, 3:6], (0, 2, 1))
-        super_box = _jnp.asarray(clusters.super_box)
-        child_box_t = _jnp.asarray(cb)
-
-    partner_code = None
-    if partner is not None:
-        fid = np.asarray(clusters.face_id)
-        n_faces = int(partner.shape[0])
-        code_of = np.full(n_faces, -1, np.int32)
-        sel = fid >= 0
-        codes = (
-            np.arange(c, dtype=np.int32)[:, None] * s
-            + np.arange(s, dtype=np.int32)[None, :]
-        )
-        code_of[fid[sel]] = codes[sel]
-        partner_code = _jnp.asarray(
-            np.where(partner >= 0, code_of[np.maximum(partner, 0)], -1)
-            .astype(np.int32)
-        )
-
-    # pre-split bf16 twin of B for the folded kernel matmul (see
-    # ClusterTables.mat_b2). ml_dtypes ships with jax; the split is the
-    # same Sterbenz-exact hi/lo decomposition _split2 does in-kernel.
-    import ml_dtypes
-
-    b16 = np.zeros((c, 16, 4 * s), dtype=np.float32)
-    b16[:, :10] = b
-    b_hi = b16.astype(ml_dtypes.bfloat16)
-    b_lo = (b16 - b_hi.astype(np.float32)).astype(ml_dtypes.bfloat16)
-    b2 = np.concatenate([b_lo, b_hi], axis=1)
+    super_box = (
+        None
+        if clusters.super_box is None
+        else _jnp.asarray(clusters.super_box)
+    )
 
     return ClusterTables(
         box=_jnp.asarray(clusters.box),
         mat_b=_jnp.asarray(b),
         face_id=_jnp.asarray(clusters.face_id),
-        mat_b2=_jnp.asarray(b2),
         super_box=super_box,
-        child_box_t=child_box_t,
-        partner_code=partner_code,
     )
 
 
@@ -236,10 +171,9 @@ def intersect_cluster_block_top2(
     """Bilinear-form candidate SELECTION only: the slots of the two
     nearest bilinear-valid triangles per ray (-1 when absent). The exact
     sequential Möller–Trumbore re-test (same arithmetic order as the
-    WGSL, render.ts:359-409) adjudicates them outside — the same
-    top-2 + exact-re-adjudication mechanism the production Pallas path
-    uses (``exact_pairs``), so the XLA path's knife-edge decisions also
-    match the exact-arithmetic reference semantics."""
+    WGSL, render.ts:359-409) adjudicates them outside, so the XLA
+    path's knife-edge decisions match the exact-arithmetic reference
+    semantics."""
     s = b.shape[-1] // 4
     out = jnp.dot(a, b, preferred_element_type=jnp.float32,
                   precision=jax.lax.Precision.HIGHEST)
@@ -305,24 +239,6 @@ def _exact_face_eval(o, d, tri, present, t_bound):
     return valid, t, u_num / det_safe, v_num / det_safe
 
 
-def _boxes_near(
-    o: jnp.ndarray,  # (T, 3)
-    inv_d: jnp.ndarray,  # (T, 3)
-    boxes: jnp.ndarray,  # (C, 6)
-    t_max: jnp.ndarray,  # (T,)
-) -> jnp.ndarray:
-    """Slab test of every ray against every cluster box → (T, C) entry
-    distance (clamped ≥ 0), +inf on miss. Dense — no gathers."""
-    bmin = boxes[None, :, 0:3]
-    bmax = boxes[None, :, 3:6]
-    t0 = (bmin - o[:, None, :]) * inv_d[:, None, :]
-    t1 = (bmax - o[:, None, :]) * inv_d[:, None, :]
-    near = jnp.max(jnp.minimum(t0, t1), axis=-1)
-    far = jnp.min(jnp.maximum(t0, t1), axis=-1)
-    hit = (near < far) & (near < t_max[:, None]) & (far > MIN_DIST)
-    return jnp.where(hit, jnp.maximum(near, 0.0), _INF)
-
-
 def tile_nears_fused(
     o: jnp.ndarray,  # (R, 3) — R divisible by tile
     inv_d: jnp.ndarray,  # (R, 3)
@@ -330,37 +246,20 @@ def tile_nears_fused(
     boxes: jnp.ndarray,  # (C, 6)
     tile: int,
     pad_to: int | None = None,
-    t_start: jnp.ndarray | None = None,  # (R,)
 ) -> jnp.ndarray:
-    """Per-tile per-cluster min entry distance — the fusion-friendly
-    rewrite of the ``lax.map(_boxes_near → min)`` pass. Two structural
-    changes, bit-identical results: per-axis accumulation (no
+    """Per-tile per-cluster min entry distance → (R // tile, C), +F32_MAX
+    where no ray of the tile enters the box. Per-axis accumulation (no
     ``(…, C, 3)`` stacked temporaries) and a single consumer chain into
-    one min-reduce over the ray axis, so XLA's loop fusion streams the
-    (tile, C) slab results through VMEM instead of materializing ~6
-    (R, C) f32 arrays in HBM (measured 34.8 → ~8 ms at 2.07M×384 —
-    tools/fused_pass_bench.py). ``pad_to`` pads the cluster axis with
-    +inf (the kernel's lane-padding contract).
-
-    ``t_start`` is the multipass-recompaction skip mask (ops/ray_sort.py
-    ``sorted_trace_multipass``): a cluster whose per-ray entry value is
-    below the ray's carried pass-stop bound is provably already
-    processed by an earlier capped pass, so it is masked to +inf here
-    — the same elementwise slab arithmetic as the pass that built the
-    bound, so the mask is exact, never heuristic. NaN t_start (a fully
-    drained tile's sentinel) masks everything, matching its ray's
-    dead t_max."""
+    one min-reduce over the ray axis, so XLA fuses the (tile, C) slab
+    results into the reduction instead of materializing (R, C) arrays.
+    ``pad_to`` pads the cluster axis with +F32_MAX."""
     r = o.shape[0]
     n_tiles = r // tile
     c = boxes.shape[0]
 
     def chunk_nears(args):
         # one tile; lax.map(batch_size=…) vmaps this over tile batches
-        if t_start is None:
-            ot, it, tt = args  # (tile, 3), (tile, 3), (tile,)
-            ts = None
-        else:
-            ot, it, tt, ts = args
+        ot, it, tt = args  # (tile, 3), (tile, 3), (tile,)
         near = jnp.full((tile, c), -_INF, jnp.float32)
         far = jnp.full((tile, c), _INF, jnp.float32)
         for ax in range(3):
@@ -374,8 +273,6 @@ def tile_nears_fused(
             far = jnp.minimum(far, jnp.maximum(t0, t1))
         hit = (near < far) & (near < tt[:, None]) & (far > MIN_DIST)
         nears = jnp.where(hit, jnp.maximum(near, 0.0), _INF)
-        if ts is not None:
-            nears = jnp.where(nears >= ts[:, None], nears, _INF)
         return jnp.min(nears, axis=0)  # (C,)
 
     args = (
@@ -383,8 +280,6 @@ def tile_nears_fused(
         inv_d.reshape(n_tiles, tile, 3),
         t_max.reshape(n_tiles, tile),
     )
-    if t_start is not None:
-        args = args + (t_start.reshape(n_tiles, tile),)
     near_tc = jax.lax.map(
         chunk_nears,
         args,
@@ -426,7 +321,9 @@ def trace_closest_clustered(
     c = ct.n_clusters
     s = ct.face_id.shape[1]
 
-    t_max = jnp.where(active, t_max, 0.0)
+    # NaN bounds (NaN shading points, integrator.offset_ray) hit nothing
+    # per ray; zeroing them keeps them out of the tile's max bound
+    t_max = jnp.where(active & (t_max > 0.0), t_max, 0.0)
 
     a_mat = ray_matrix(o, d).reshape(n_tiles, tile, 10)
     inv_d = safe_inv_dir(d)
@@ -460,10 +357,9 @@ def trace_closest_clustered(
         tile_act = cnear < _tile_bound(best_t, best_slot)  # (n_tiles,)
 
         b = jnp.take(ct.mat_b, cid, axis=0)  # (n_tiles, 10, 4S)
-        # bilinear-form candidate selection (MXU work), exact sequential
-        # re-adjudication of the top-2 (same mechanism as the Pallas
-        # path's exact_pairs) — knife-edge decisions then match the
-        # reference's arithmetic, not the matmul decomposition's
+        # bilinear-form candidate selection, exact sequential
+        # re-adjudication of the top-2 — knife-edge decisions then match
+        # the reference's arithmetic, not the product decomposition's
         slot1, slot2 = jax.vmap(intersect_cluster_block_top2)(
             a_mat, b, best_t.reshape(n_tiles, tile)
         )

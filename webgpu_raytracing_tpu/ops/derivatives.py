@@ -1,7 +1,7 @@
 """Screen-space quad derivatives (reference K12, render.ts:943-1007).
 
 The WGSL uses subgroup ``quadSwapX``/``quadSwapY`` to difference values
-across 2×2 quads; the TPU equivalent is an axis roll within even/odd pixel
+across 2×2 quads; the array-program equivalent is an axis roll within even/odd pixel
 pairs of an (H, W, ...) array — one vectorized shuffle, no subgroups
 needed. Sign convention matches the reference: the derivative is oriented
 so both lanes of a pair get the same forward difference."""

@@ -1,34 +1,27 @@
-"""Cross-platform-deterministic f32 helpers.
+"""Cross-backend-deterministic f32 helpers.
 
-XLA:TPU lowers f32 division *inside a fusion* to a reciprocal-multiply
-with Newton refinement (there is no native f32 divide on the VPU), and
-additionally rewrites ``x / sqrt(s)`` into ``x * rsqrt(s)``. Either way
-the quotient can differ from XLA:CPU's exact-rounded divide by 1-2 ulp.
-Standalone ``div``/``sqrt``/``rsqrt`` ARE bit-identical between the two
-backends, but an ``optimization_barrier`` on the denominator does NOT
-recover that inside a real graph (measured: the barriered normalize is
-*worse*, max 2 ulp — tools/op_determinism.py ``norm3b``). Every camera
-and bounce direction therefore picked up ulp-level noise on TPU, which
-chaotic path divergence amplified into the whole 512²·4spp
-cross-platform RMSE (0.0866, 3.1% of pixels; tools/primary_diverge.py
-localized it: identical rays trace to 0 face mismatches while 100% of
-raygen directions differed).
+XLA backends are free to lower an f32 division or square root inside a
+fusion as a reciprocal (or rsqrt) plus refinement, and to evaluate trig
+with their own polynomials, so the same graph can give quotients, roots
+and sines 1-2 ulp apart on two backends. Every camera and bounce
+direction goes through these operations, and chaotic path divergence
+amplifies ulp noise into whole-image RMSE between backends.
 
-The fix that measures bit-identical on both backends (``cr_div``,
-0/65536 mismatches): take whatever quotient the platform gives, then
-apply one exact-residual correction step — Dekker/Veltkamp two-product
-to compute ``r = num - q·den`` exactly, then ``q + r/den``. The
-correction converges to the correctly rounded quotient no matter how
-the embedded divides are approximated, so CPU (already correctly
-rounded; the step is a bitwise no-op there — measured 0/65536 vs plain
-``/``) and TPU (1-2 ulp off pre-correction) land on the same bits.
-Cost: ~10 VPU flops per lane in passes that are gather/HBM-bound —
-unmeasurable at frame level.
+The remedy: take whatever quotient the platform gives, then apply one
+exact-residual correction step — Dekker/Veltkamp two-product to compute
+``r = num - q·den`` exactly, then ``q + r/den``. The correction converges
+to the correctly rounded quotient however the embedded divides are
+approximated, so every backend lands on the same bits; where the
+platform divide is already correctly rounded the step is a bitwise no-op.
+``det_sqrt`` does the same for square roots, and the trig functions below
+are evaluated in double-f32 from IEEE mul/add alone.
 
 WGSL ``normalize()`` is exact-rounded per IEEE div/sqrt on the driver
 stacks the golden was validated against (the CPU simulator matches the
 48² golden bit-exactly), so deterministic-normalize is also the
-faithful-parity choice, not just a cross-platform convenience.
+faithful-parity choice, not just a cross-backend convenience. Whether the
+GPU build needs the chain is measured by ``chip_smoke.py``'s wgsl_parity
+phase, which renders with and without it.
 """
 
 from __future__ import annotations
@@ -48,11 +41,8 @@ def _two_prod(x, y):
     fusions XLA's algebraic simplifier treats the split as associative
     algebra — ``cx - (cx - x)`` folds to ``x``, the error term collapses
     to zero, and the "corrected" result silently degrades to the plain
-    platform product (measured r4: the same collapse hit the trig
-    module's ``_two_sum``, and an unbarriered det_sqrt left the TPU
-    sqrt divergence fully intact — st2 probe 1204/2304 lanes). The
-    returned ``p`` is barriered too so callers' ``(x - p) - err``
-    residuals can't re-fuse with the product."""
+    platform product. The returned ``p`` is barriered too so callers'
+    ``(x - p) - err`` residuals can't re-fuse with the product."""
     import jax
 
     p = jax.lax.optimization_barrier(x * y)
@@ -67,10 +57,8 @@ def _two_prod(x, y):
 
 
 def det_div(num, den):
-    """num / den, correctly rounded on every backend (bit-identical
-    CPU↔TPU, measured over 65536 random quotients *inside a jit graph*
-    — tools/op_determinism.py ``cr_div``). One Newton/Dekker residual
-    correction on top of the platform quotient."""
+    """num / den, correctly rounded on every backend. One Newton/Dekker
+    residual correction on top of the platform quotient."""
     num = jnp.asarray(num, jnp.float32)
     den = jnp.asarray(den, jnp.float32)
     q = num / den
@@ -86,14 +74,11 @@ def det_div(num, den):
 
 
 def det_sqrt(x):
-    """sqrt(x), correctly rounded on every backend. XLA:TPU lowers f32
-    sqrt to an rsqrt-based refinement whose result is CONTEXT-DEPENDENT:
-    standalone it matches CPU (op_determinism ``sqrt`` 0/65536), but
-    inside larger fusions it comes back 1 ulp off on ~half the lanes
-    (r4 staged probe: identical ``1 - u²`` inputs, divergent sqrt).
-    One exact-residual Newton step on top of the platform sqrt lands
-    both backends on the correctly rounded result; on CPU (already
-    correct) it is a bitwise no-op. Zeros, infs and NaNs pass through."""
+    """sqrt(x), correctly rounded on every backend. An rsqrt-based
+    in-fusion lowering can come back 1 ulp off; one exact-residual Newton
+    step on top of the platform sqrt lands every backend on the correctly
+    rounded result (a bitwise no-op where the platform sqrt already is).
+    Zeros, infs and NaNs pass through."""
     x = jnp.asarray(x, jnp.float32)
     s = jnp.sqrt(x)
     p, err = _two_prod(s, s)
@@ -103,17 +88,14 @@ def det_sqrt(x):
 
 
 def normalize(v: jnp.ndarray, eps: float = 1e-20) -> jnp.ndarray:
-    """v / max(|v|, eps) along the last axis, bit-identical CPU↔TPU.
+    """v / max(|v|, eps) along the last axis, bit-identical across
+    backends.
 
-    ``sqrt`` is bit-identical across backends even in fusions (measured);
-    only the divide needs the correction. The squared-norm sum is left
-    UNGUARDED on purpose: both backends contract it the same way
-    (op_determinism ``norm3_cr`` = 0/65536 CPU↔TPU), and the WGSL
-    simulator's ``np.dot`` norm matches the contracted form — a strict
-    (smul) rewrite was measured to CHANGE CPU bits away from the
-    golden (r4). The sqrt DOES need det_sqrt — TPU's in-fusion sqrt is
-    1 ulp off CPU's (see det_sqrt), and det_sqrt is a bitwise no-op on
-    CPU so the golden is untouched."""
+    The squared-norm sum is left UNGUARDED on purpose: the WGSL
+    simulator's ``np.dot`` norm matches the contracted form, and a strict
+    (smul) rewrite changes CPU bits away from the golden. The sqrt goes
+    through det_sqrt and the divide through det_div (both bitwise no-ops
+    on the CPU, so the golden is untouched)."""
     n = jnp.maximum(
         det_sqrt(jnp.sum(v * v, axis=-1, keepdims=True)), eps
     )
@@ -123,20 +105,18 @@ def normalize(v: jnp.ndarray, eps: float = 1e-20) -> jnp.ndarray:
 # ---------------------------------------------------------------------------
 # Deterministic trigonometry (double-f32).
 #
-# XLA:TPU lowers f32 sin/cos/tan to its own polynomial approximations that
-# differ from XLA:CPU's correctly-rounded libm results by 1-2 ulp on a
-# large fraction of lanes (tools/op_determinism.py; the staged raygen
-# probe pins the whole remaining CPU↔TPU raygen divergence on them — uv
-# and hv_pan are bit-identical, sx/cx/tn are not). Per-lane trig feeds
-# every camera direction (Panini/fisheye raygen) and every bounce
-# direction (rng.sample_sphere's cos/sin(2πv)), so ulp noise there is
-# amplified by chaotic path divergence into whole-image RMSE.
+# An XLA backend may lower f32 sin/cos/tan to its own polynomial
+# approximations, 1-2 ulp from correctly rounded libm results on a large
+# fraction of lanes. Per-lane trig feeds every camera direction
+# (Panini/fisheye raygen) and every bounce direction
+# (rng.sample_sphere's cos/sin(2πv)), so ulp noise there is amplified by
+# chaotic path divergence into whole-image RMSE.
 #
 # These versions compute sin/cos in double-f32 (each product exact by
 # Veltkamp two-product or contraction-guarded, each sum an error-free
 # transform), accurate to ~2^-44 relative, then round once. The result
 # bits are a pure function of IEEE f32 mul/add — which ARE bit-identical
-# CPU↔TPU — so CPU and TPU agree EXACTLY everywhere. Against libm
+# across backends — so every backend agrees EXACTLY. Against libm
 # (np.sin, the WGSL-simulator semantics) the value is the correctly
 # rounded f32 except when the true value sits within ~2^-44 of a rounding
 # boundary (~1e-6 of uniform draws — measured by tests/test_ops.py's
@@ -222,7 +202,7 @@ def _df_mul(a, b):
     bh, bl = b
     p, e = _two_prod(ah, bh)
     # cross terms are inexact f32 products; guard them against FMA
-    # contraction so CPU and TPU accumulate identical low bits
+    # contraction so every backend accumulates identical low bits
     return _quick_two_sum(p, e + (_smul(ah, bl) + _smul(al, bh)))
 
 
@@ -278,7 +258,7 @@ def _df_round(a):
 
 
 def det_sincos(x):
-    """(sin x, cos x), bit-identical CPU↔TPU, ≈ correctly rounded
+    """(sin x, cos x), bit-identical across backends, ≈ correctly rounded
     (mis-rounds ~1e-6 of uniform draws — see the module comment)."""
     sin_r, cos_r, q = _sincos_core(x)
     sr, cr = _df_round(sin_r), _df_round(cos_r)

@@ -40,13 +40,6 @@ class EnvDistribution:
     cond_cdf: jax.Array  # (H, W) inclusive conditional CDF per row
     lum: jax.Array  # (H, W) luminance (pdf numerator)
     total: jax.Array  # () Σ lum·sinθ (pdf normalizer)
-    # (H, W/64) right-edge subsample of cond_cdf (None when W <= 64):
-    # the column inversion first scans this coarse row (64-wide gather)
-    # to pick a block, then one (1, 64) fine slice — 8x less per-lane
-    # gather traffic than fetching the whole W-wide row (the r5
-    # envis_micro attribution: sample_env was 114.5 ms/2.07M draws,
-    # dominated by the 4096-wide cond_cdf row gather)
-    cond_cdf_coarse: jax.Array | None = None
 
 
 def build_env_distribution(img: np.ndarray) -> EnvDistribution:
@@ -66,34 +59,12 @@ def build_env_distribution(img: np.ndarray) -> EnvDistribution:
     row_cdf = np.cumsum(row_sum) / total
     cond_cdf = np.cumsum(weighted, axis=1) / row_sum[:, None]
     cond32 = cond_cdf.astype(np.float32)
-    # the two-level inversion is OFF by default (coarse=None): both
-    # TPU formulations of the fine fetch measured SLOWER than the
-    # full-row gather it replaces (envis_micro, 2.07M draws: full-row
-    # 114.5 ms; vmapped dynamic_slice 2983 ms; folded row gather of
-    # (H*W/64, 64) 929 ms). The wide-row gather is apparently the
-    # good case for this part's gather engine; two narrow dependent
-    # gathers lose despite 8x less traffic. Kept (opt-in via
-    # EVSAMPLE_TWOLEVEL=1) as the measured record — bit-identical
-    # results either way (tested).
-    import os as _os
-
-    use_two = (
-        _os.environ.get("EVSAMPLE_TWOLEVEL") == "1"
-        and w % 64 == 0
-        and w > 64
-    )
-    coarse = (
-        jnp.asarray(np.ascontiguousarray(cond32[:, 63::64]))
-        if use_two
-        else None
-    )
     return EnvDistribution(
         img=jnp.asarray(img),
         row_cdf=jnp.asarray(row_cdf.astype(np.float32)),
         cond_cdf=jnp.asarray(cond32),
         lum=jnp.asarray(lum.astype(np.float32)),
         total=jnp.asarray(np.float32(total)),
-        cond_cdf_coarse=coarse,
     )
 
 
@@ -111,8 +82,7 @@ def _invert_cdf(cdf_rows: jnp.ndarray, u: jnp.ndarray, axis_len: int):
 def _chunked_map(fn, args, n, budget_elems: int):
     """lax.map over ray chunks so per-chunk temporaries stay bounded —
     a 1080p bounce wave is ~2M lanes, and materializing a (R, W=4096)
-    gather/compare at once is a 34 GB allocation (measured: the r4
-    config-#3 arm OOM-ed exactly there). Shapes must be static: n is the
+    gather/compare at once is a 34 GB allocation. Shapes must be static: n is the
     static lane count, budget_elems bounds chunk·W elements."""
     batch = max(1, min(n, budget_elems))
     return jax.lax.map(fn, args, batch_size=batch)
@@ -137,47 +107,13 @@ def sample_env(
         row_body, u1f, n, budget_elems=(8 << 20) // max(1, h)
     )
 
-    if dist.cond_cdf_coarse is not None:
-        # two-level inversion (see EnvDistribution.cond_cdf_coarse):
-        # coarse 64-block scan, then ONE (1, 64) fine slice per lane.
-        # Bit-identical to the full-row scan: the CDF row is monotone,
-        # so every entry left of the first block whose right edge
-        # >= u is < u and every entry right of it is >= u — the global
-        # count splits exactly into blk*64 + in-block count.
-        n_blk = w // 64
-        # fold to (H*n_blk, 64) so the fine fetch is a plain ROW
-        # gather — a vmapped dynamic_slice lowers to a per-lane 2-D
-        # gather that measured 26x SLOWER than even the full-row
-        # baseline on TPU (envis_micro: 2983 ms vs 114.5)
-        cond_fold = dist.cond_cdf.reshape(h * n_blk, 64)
+    def col_body(args):
+        r, u = args
+        return _invert_cdf(jnp.take(dist.cond_cdf, r, axis=0), u, w)
 
-        def col_body(args):
-            # written per-element: lax.map(batch_size=...) vmaps this
-            r, u = args
-            coarse = jnp.take(dist.cond_cdf_coarse, r, axis=0)
-            blk = jnp.clip(
-                jnp.sum((coarse < u).astype(jnp.int32), axis=-1),
-                0,
-                n_blk - 1,
-            )
-            fine = jnp.take(cond_fold, r * n_blk + blk, axis=0)
-            loc = jnp.clip(
-                jnp.sum((fine < u).astype(jnp.int32), axis=-1), 0, 63
-            )
-            return blk * 64 + loc
-
-        col = _chunked_map(
-            col_body, (row, u2f), n, budget_elems=(8 << 20) // 64
-        )
-    else:
-
-        def col_body(args):
-            r, u = args
-            return _invert_cdf(jnp.take(dist.cond_cdf, r, axis=0), u, w)
-
-        col = _chunked_map(
-            col_body, (row, u2f), n, budget_elems=(8 << 20) // max(1, w)
-        )
+    col = _chunked_map(
+        col_body, (row, u2f), n, budget_elems=(8 << 20) // max(1, w)
+    )
     row = row.reshape(flat_shape)
     col = col.reshape(flat_shape)
 

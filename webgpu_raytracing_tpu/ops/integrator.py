@@ -7,7 +7,7 @@ albedo; bounce directions are cosine-weighted (``normalize(n + sphere)``,
 rng.ts:88-100); Russian roulette on the max throughput channel
 (render.ts:1201-1208); environment radiance on miss (render.ts:1183-1186).
 
-TPU-native shape: instead of one divergent bounce loop per pixel thread,
+Wavefront shape: instead of one divergent bounce loop per pixel thread,
 the whole ray batch advances one segment at a time (a fixed unroll —
 ``bounces_depth`` is static config), with dead lanes masked. RNG advances
 are masked per lane to replicate the SIMT draw order exactly.
@@ -35,274 +35,107 @@ from .envmap import sample_environment
 from .traverse import Hit, trace_any, trace_closest
 
 
-def _resolve_backend(settings, tables) -> str:
-    """'auto' → Pallas kernel on TPU, XLA clustered elsewhere.
-    "pallas_interpret" runs the REAL kernel under the Pallas interpreter
-    (any backend) — slow, but the only way to drive the production
-    kernel through the full frame path without a TPU (tests)."""
-    backend = settings.traversal
-    if backend == "auto":
-        import jax
+def _resolve_backend(settings) -> str:
+    """The traversal backend: ``settings.traversal``, where "auto" is the
+    Triton tile kernel on a GPU and the XLA clustered path elsewhere.
+    "triton" compiles only for a GPU, so asking for it elsewhere is an
+    error rather than a silent fallback."""
+    import jax
 
-        backend = (
-            "pallas" if jax.default_backend() == "tpu" else "clustered"
+    backend = settings.traversal
+    platform = jax.default_backend()
+    if backend == "auto":
+        return "triton" if platform == "gpu" else "clustered"
+    if backend == "triton" and platform != "gpu":
+        raise ValueError(
+            f"traversal='triton' needs a GPU; the default backend is "
+            f"{platform!r} (use traversal='auto' or 'clustered')"
         )
-    # NOTE: tables above the VMEM budget no longer force the XLA fallback —
-    # the Pallas kernel streams cluster blocks from HBM per round
-    # (cluster_pallas.py hbm=True path).
+    if backend not in ("triton", "clustered", "threaded"):
+        raise ValueError(f"unknown traversal {backend!r}")
     return backend
 
 
-def _trace_closest(
-    o, d, t_max, tables, settings, active=None, sort=False, primary=False,
-    excl=None, seg=0,
-):
-    """Traversal backend dispatch (static on settings.traversal).
+def _clustered_fn(backend, settings, any_hit):
+    """(o, d, t_max, tables, active) -> Hit for a clustered backend."""
+    if backend == "triton":
+        from . import cluster_triton
 
-    ``sort`` (static) routes the batch through the nearest-cluster ray
-    sort (ops/ray_sort.py) — on for incoherent bounce/shadow segments,
-    off for camera rays, which are already tile-coherent. ``primary``
-    (static) marks camera-ray segments: exact top-2 adjudication always
-    applies there, while bounce segments pay the ~2x pairs-mode round
-    cost only when ``exact_pairs_bounce`` is set (see config.py).
-    ``excl`` is the optional (R,) i32 source-face-duplicate code per ray
-    (ClusterTables.partner_code of the face the ray leaves; -1 = none) —
-    the Pallas kernel masks that slot so its bf16-sign-ambiguous t̂ ≈ 0
-    impostor can never win (exact arithmetic rejects it by t > 0)."""
-    backend = _resolve_backend(settings, tables)
-    use_sort = sort and settings.sort_bounce_rays
-    exact = settings.exact_pairs and (
-        primary or getattr(settings, "exact_pairs_bounce", False)
-    )
-    if backend in ("pallas", "pallas_interpret"):
-        from .cluster_pallas import (
-            adjudicate_compact,
-            rederive_uv,
-            trace_closest_clustered_pallas,
-        )
-
-        fn = functools.partial(
-            trace_closest_clustered_pallas,
-            interpret=backend == "pallas_interpret",
+        return functools.partial(
+            cluster_triton.trace_clustered_triton,
             tile=settings.trace_tile,
-            tiles_per_step=settings.tiles_per_step,
-            approx_div=settings.approx_div,
-            exact_pairs=exact,
-            gang=settings.trace_gang,
-            gang_frac=settings.trace_gang_frac,
-            mm_passes=settings.mm_passes,
-            pipeline_rounds=settings.pipeline_rounds,
-            lockstep=settings.lockstep_tiles,
-            sched_rounds=settings.trace_sched,
-            # sorted path: re-derive u/v after unsorting (2 fewer unsort
-            # scatters; the algebra only needs original-order o/d/face)
-            derive_uv=not use_sort,
+            any_hit=any_hit,
         )
-    elif backend == "clustered":
-        from .cluster_trace import trace_closest_clustered
+    from .cluster_trace import trace_closest_clustered
 
-        rederive_uv = None
-        fn = functools.partial(
-            trace_closest_clustered, tile=settings.trace_tile
-        )
-    else:
-        return trace_closest(o, d, t_max, tables, active)
-    if use_sort:
-        from .ray_sort import sorted_trace
-
-        if backend in ("pallas", "pallas_interpret"):
-            if exact:
-                # unsort only the carried candidate faces + ambiguity
-                # flag (one packed scatter); the exact re-adjudication
-                # runs in original ray order where o/d/t_max need no
-                # unsort, compacted to the flagged rays
-                def tf(o_, d_, tm_, tb_, act_, ex_=None):
-                    _, f1, f2, f3, amb = fn(
-                        o_, d_, tm_, tb_, act_, raw_pair=True,
-                        excl_code=ex_,
-                    )
-                    return f1, f2, f3, amb
-
-                f1, f2, f3, amb = sorted_trace(
-                    tf, o, d, t_max, tables, active, extra=excl
-                )
-                tm_eff = (
-                    t_max
-                    if active is None
-                    else jnp.where(active, t_max, 0.0)
-                )
-                return adjudicate_compact(
-                    o, d, tm_eff, tm_eff, (f1, f2, f3), amb, tables
-                )
-
-            # binned per-ray scheduling (see RenderSettings.binned_sort
-            # and the ROADMAP r5 ceiling ledger): pass 1 runs each
-            # block's distinct nearest-cluster ids, survivors run the
-            # compacted drain pass. The drain fn is rebuilt with
-            # gang<=1 so its packed keys truncate t at the binned
-            # kernel's slot-bit granularity (bit-identity contract).
-            from .cluster_pallas import is_two_level
-
-            if settings.binned_sort and not is_two_level(tables.clusters):
-                from .ray_sort import binned_trace
-
-                fn_surv = functools.partial(
-                    trace_closest_clustered_pallas,
-                    interpret=backend == "pallas_interpret",
-                    tile=settings.trace_tile,
-                    tiles_per_step=settings.tiles_per_step,
-                    approx_div=settings.approx_div,
-                    exact_pairs=False,
-                    gang=0,
-                    gang_frac=0,
-                    mm_passes=settings.mm_passes,
-                    pipeline_rounds=settings.pipeline_rounds,
-                    lockstep=settings.lockstep_tiles,
-                    derive_uv=False,
-                )
-                t, face = binned_trace(
-                    fn_surv, o, d, t_max, tables, active, extra=excl,
-                    interpret=backend == "pallas_interpret",
-                    mm_passes=settings.mm_passes,
-                )
-                return rederive_uv(o, d, t, face, tables)
-
-            # capped-rounds + recompaction multipass (the round-loop
-            # work-volume lever — ops/ray_sort.py sorted_trace_multipass;
-            # bit-identical to the single-pass sorted trace). Gated to
-            # the configs whose kernel path supports the cap (lockstep
-            # gang-all, single-level); elsewhere the plain sorted trace
-            # is the same result with no capped passes.
-            from .ray_sort import sorted_trace_multipass
-
-            if (
-                settings.multipass_cap > 0
-                and settings.lockstep_tiles
-                and settings.trace_gang >= 2
-                and settings.trace_gang_frac == 0
-                and settings.trace_sched == 0
-                and not is_two_level(tables.clusters)
-            ):
-                t, face = sorted_trace_multipass(
-                    fn, o, d, t_max, tables, active, extra=excl,
-                    cap=settings.multipass_cap,
-                    passes=settings.multipass_passes,
-                )
-                return rederive_uv(o, d, t, face, tables)
-
-            # unsort only (t, face) — u/v are zeros on the derive_uv=False
-            # path, and scattering constants back is wasted HBM traffic
-            def tf(o_, d_, tm_, tb_, act_, ex_=None):
-                h = fn(o_, d_, tm_, tb_, act_, excl_code=ex_)
-                return h.t, h.face
-
-            # dead-lane slicing (RenderSettings.live_slice): later
-            # bounce segments are mostly dead/miss lanes (measured 62%
-            # live at seg 1, 31% at seg 2 on the default frame) keyed
-            # to the back of the sort — trace only a static live
-            # prefix, fill the keyless tail with its known miss result
-            ls = None
-            if settings.live_slice and seg > 0:
-                ls = 0.75 if seg == 1 else 0.5
-
-            def miss_tail(tm_tail):
-                return (
-                    tm_tail,
-                    jnp.full(tm_tail.shape, -1, jnp.int32),
-                )
-
-            t, face = sorted_trace(
-                tf, o, d, t_max, tables, active, extra=excl,
-                live_slice=ls, tail=miss_tail,
-            )
-            return rederive_uv(o, d, t, face, tables)
-        return sorted_trace(fn, o, d, t_max, tables, active)
-    if backend in ("pallas", "pallas_interpret"):
-        return fn(o, d, t_max, tables, active, excl_code=excl)
-    return fn(o, d, t_max, tables, active)
+    return functools.partial(
+        trace_closest_clustered, tile=settings.trace_tile, any_hit=any_hit
+    )
 
 
-def _trace_any(
-    o, d, t_max, tables, settings, active=None, sort=False, excl=None,
-    seg=0,
+def _live_fraction(settings, seg, closest):
+    """Static live prefix of a sorted leg (RenderSettings.live_slice):
+    later segments are mostly dead or escaping lanes, keyed to the back
+    of the sort. None = trace the full width."""
+    if not settings.live_slice or seg == 0:
+        return None
+    if closest:
+        return 0.75 if seg == 1 else 0.5
+    return 0.375 if seg == 1 else 0.25
+
+
+def _trace_closest(
+    o, d, t_max, tables, settings, active=None, sort=False, seg=0,
 ):
-    backend = _resolve_backend(settings, tables)
-    if backend in ("pallas", "pallas_interpret"):
-        from .cluster_pallas import trace_closest_clustered_pallas
+    """Closest-hit dispatch (static on settings.traversal). ``sort``
+    (static) routes the batch through the nearest-cluster ray sort
+    (ops/ray_sort.py) — on for incoherent bounce segments, off for camera
+    rays, which are already tile-coherent."""
+    backend = _resolve_backend(settings)
+    if backend == "threaded":
+        return trace_closest(o, d, t_max, tables, active)
+    fn = _clustered_fn(backend, settings, any_hit=False)
+    if not (sort and settings.sort_bounce_rays):
+        return fn(o, d, t_max, tables, active)
+    from .ray_sort import sorted_trace
 
-        def fn(o, d, t_max, tables, active, ex_=None):
-            hit = trace_closest_clustered_pallas(
-                o, d, t_max, tables, active,
-                interpret=backend == "pallas_interpret",
-                tile=settings.trace_tile,
-                tiles_per_step=settings.tiles_per_step, any_hit=True,
-                excl_code=ex_, mm_passes=settings.mm_passes,
-                pipeline_rounds=settings.pipeline_rounds,
-                lockstep=settings.lockstep_tiles,
-            )
-            return hit.face >= 0
-
-    elif backend == "clustered":
-        from .cluster_trace import trace_any_clustered
-
-        excl = None  # exact arithmetic rejects the duplicate by t > 0
-        fn = functools.partial(
-            trace_any_clustered, tile=settings.trace_tile
+    def miss_tail(tm_tail):
+        zeros = jnp.zeros(tm_tail.shape, jnp.float32)
+        return Hit(
+            t=tm_tail, u=zeros, v=zeros,
+            face=jnp.full(tm_tail.shape, -1, jnp.int32),
         )
-    else:
+
+    return sorted_trace(
+        fn, o, d, t_max, tables, active,
+        live_slice=_live_fraction(settings, seg, closest=True),
+        tail=miss_tail,
+    )
+
+
+def _trace_any(o, d, t_max, tables, settings, active=None, sort=False, seg=0):
+    """Any-hit dispatch (shadow rays): True where the segment is blocked."""
+    backend = _resolve_backend(settings)
+    if backend == "threaded":
         return trace_any(o, d, t_max, tables, active)
-    if sort and settings.sort_bounce_rays:
-        from .ray_sort import sorted_trace
+    hit_fn = _clustered_fn(backend, settings, any_hit=True)
 
-        if backend in ("pallas", "pallas_interpret"):
-            from .cluster_pallas import is_two_level
+    def fn(o, d, t_max, tables, active):
+        return hit_fn(o, d, t_max, tables, active).face >= 0
 
-            if (
-                settings.binned_sort or settings.binned_any_sort
-            ) and not is_two_level(tables.clusters):
-                # binned any-hit (see RenderSettings.binned_any_sort):
-                # pass 1 tests each ray's nearest cluster (any valid
-                # hit ends it), survivors run the compacted any-hit
-                # drain pass with the t_start skip mask. Exactly the
-                # single-pass blocked set (tests).
-                from .cluster_pallas import trace_closest_clustered_pallas
-                from .ray_sort import binned_trace_any
+    if not (sort and settings.sort_bounce_rays):
+        return fn(o, d, t_max, tables, active)
+    from .ray_sort import sorted_trace
 
-                fn_any = functools.partial(
-                    trace_closest_clustered_pallas,
-                    interpret=backend == "pallas_interpret",
-                    tile=settings.trace_tile,
-                    tiles_per_step=settings.tiles_per_step,
-                    any_hit=True,
-                    mm_passes=settings.mm_passes,
-                    pipeline_rounds=settings.pipeline_rounds,
-                    lockstep=settings.lockstep_tiles,
-                    derive_uv=False,
-                )
-                return binned_trace_any(
-                    fn_any, o, d, t_max, tables, active, extra=excl,
-                    interpret=backend == "pallas_interpret",
-                    mm_passes=settings.mm_passes,
-                )
+    def clear_tail(tm_tail):
+        return jnp.zeros(tm_tail.shape, jnp.bool_)
 
-        # dead-lane slicing (RenderSettings.live_slice): shadow legs
-        # are mostly dead — measured live fractions on the env-IS
-        # frame: 20% at segment 1, 10% at segment 2 (facing culls +
-        # dead paths) — and the keyless tail's answer is "unblocked"
-        ls = None
-        if settings.live_slice and seg > 0:
-            ls = 0.375 if seg == 1 else 0.25
+    return sorted_trace(
+        fn, o, d, t_max, tables, active,
+        live_slice=_live_fraction(settings, seg, closest=False),
+        tail=clear_tail,
+    )
 
-        def clear_tail(tm_tail):
-            return jnp.zeros(tm_tail.shape, jnp.bool_)
-
-        return sorted_trace(
-            fn, o, d, t_max, tables, active, extra=excl,
-            live_slice=ls, tail=clear_tail,
-        )
-    if backend in ("pallas", "pallas_interpret"):
-        return fn(o, d, t_max, tables, active, excl)
-    return fn(o, d, t_max, tables, active)
 
 _ORIGIN = 1.0 / 32.0
 _FLOAT_SCALE = 1.0 / 65536.0
@@ -439,7 +272,6 @@ def direct_light(
     settings: RenderSettings,
     active: jnp.ndarray | None = None,
     sort: bool = False,
-    excl: jnp.ndarray | None = None,
     seg: int = 0,
 ):
     """pointColor (render.ts:1143-1157): one-or-more light samples with
@@ -463,7 +295,7 @@ def direct_light(
         dirn = ds * inv_d[..., None]
         shadowed = _trace_any(
             point, dirn, detmath.det_sqrt(jnp.maximum(d_sq, 0.0)), tables,
-            settings, active, sort=sort, excl=excl, seg=seg,
+            settings, active, sort=sort, seg=seg,
         )
         vis = jnp.where(shadowed, 0.0, 1.0)
         cosine = jnp.maximum(jnp.sum(dirn * normal, axis=-1), 0.0)
@@ -523,8 +355,7 @@ def path_trace(
     chained = (
         settings.chained_sort
         and settings.sort_bounce_rays
-        and _resolve_backend(settings, tables)
-        in ("pallas", "pallas_interpret", "clustered")
+        and _resolve_backend(settings) != "threaded"
     )
     orig = None
 
@@ -535,11 +366,6 @@ def path_trace(
     env_dir = jnp.zeros((r, 3), jnp.float32)
     env_w = jnp.zeros((r, 3), jnp.float32)
     env_mis_pdf = jnp.full((r,), -1.0, jnp.float32)  # ≥0 ⇒ MIS-weighted
-
-    # source-face-duplicate exclusion codes (ClusterTables.partner_code):
-    # updated per vertex, ridden by every bounce/shadow trace from it
-    pc = getattr(tables.clusters, "partner_code", None)
-    excl = None
 
     n_segments = max(settings.bounces_depth - 1, 0)
     for seg in range(n_segments):
@@ -568,8 +394,6 @@ def path_trace(
             }
             if env_is:
                 st["prev_bsdf_pdf"] = prev_bsdf_pdf
-            if excl is not None:
-                st["excl"] = excl
             st = permute_rows(perm, st)
             o, d, state, color = st["o"], st["d"], st["state"], st["color"]
             throughput, alive = st["throughput"], st["alive"]
@@ -577,12 +401,10 @@ def path_trace(
             env_mis_pdf, orig = st["env_mis_pdf"], st["orig"]
             if env_is:
                 prev_bsdf_pdf = st["prev_bsdf_pdf"]
-            if excl is not None:
-                excl = st["excl"]
         sort_here = seg > 0 and not chained
         hit = _trace_closest(
             o, d, t_max, tables, settings, active=alive, sort=sort_here,
-            primary=seg == 0, excl=excl, seg=seg,
+            seg=seg,
         )
         if seg == 0:
             first_hit = hit
@@ -615,18 +437,13 @@ def path_trace(
         n = face_normal(shade, hit.u, hit.v, settings.shading_type)
         new_o = face_point_offset(tri, shade, hit.u, hit.v)
 
-        # every ray leaving this vertex (shadow + next bounce) excludes
-        # the hit face's two-sided duplicate (see _trace_closest)
-        if pc is not None:
-            excl = jnp.where(h, jnp.take(pc, face, axis=0), -1)
-
         if settings.next_event_estimation:
             # chained: lanes are already origin-grouped by this segment's
             # permutation, and shadow directions converge on the light —
             # the shadow trace needs no sort leg of its own
             nee, state = direct_light(
                 new_o, n, state, tables, settings, active=h,
-                sort=sort_here, excl=excl, seg=seg,
+                sort=sort_here, seg=seg,
             )
             color = jnp.where(
                 h[..., None], color + nee * throughput, color
@@ -653,8 +470,7 @@ def path_trace(
             facing = jnp.sum(ed * nn, axis=-1) > 0.0
             blocked = _trace_any(
                 new_o, ed, jnp.full((r,), F32_MAX, jnp.float32), tables,
-                settings, active=h & facing, sort=sort_here, excl=excl,
-                seg=seg,
+                settings, active=h & facing, sort=sort_here, seg=seg,
             )
             vis = h & facing & ~blocked
             pb = bsdf_pdf(ed, n)
@@ -738,7 +554,7 @@ def trace_direct(
     if settings.env_importance_sampling:
         env_data = env_data.img  # EnvDistribution → radiance image
     r = o.shape[0]
-    hit = _trace_closest(o, d, t_max0, tables, settings, primary=True)
+    hit = _trace_closest(o, d, t_max0, tables, settings)
     found = hit.face >= 0
     env = sample_environment(env_data, d, settings.environment)
     color = jnp.where(found[..., None], 0.0, env)
@@ -752,14 +568,8 @@ def trace_direct(
     n = face_normal(shade, hit.u, hit.v, settings.shading_type)
     point = face_point_offset(tri, shade, hit.u, hit.v)
 
-    pc = getattr(tables.clusters, "partner_code", None)
-    excl = (
-        None
-        if pc is None
-        else jnp.where(found, jnp.take(pc, face, axis=0), -1)
-    )
     nee, state = direct_light(
-        point, n, state, tables, settings, active=found, excl=excl
+        point, n, state, tables, settings, active=found
     )
     lit = emission + albedo * nee
     color = jnp.where(found[..., None], lit, color)

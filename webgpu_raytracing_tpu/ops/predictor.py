@@ -3,7 +3,7 @@
 The reference's ``pixelHitDist`` (render.ts:1121-1141) uses subgroup quads:
 each pixel re-tests the 4 previous-frame hit faces of its 2×2 quad
 (``objectFaceHit``) and uses the nearest re-hit (+EPSILON) to bound the
-primary ray's BVH traversal. TPU shape: the "quad" is an explicit 2×2
+primary ray's BVH traversal. Array shape: the "quad" is an explicit 2×2
 pixel block; the 4 candidate faces per pixel come from one reshape, and
 each gets a direct Möller–Trumbore re-test (no BVH traversal — any hit is
 already a valid upper bound on the closest hit, which is all the bound

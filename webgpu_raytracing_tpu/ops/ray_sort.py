@@ -1,26 +1,16 @@
-"""Ray reordering for traversal coherence — the bounce-segment fast path.
+"""Ray reordering for traversal coherence — the bounce-segment path.
 
-Bounce rays are incoherent in pixel order: a 128-ray tile's rays
-collectively hit ~40-100 clusters while each ray only needs ~2.6 (measured
-at 1080p on the bundled scene). Sorting rays by their *two nearest hit
-clusters* groups rays that start traversal in the same treelets, collapsing
-tile unions from ~41 to ~11 and the bounce trace from 824 ms to 350 ms.
-
-Round-1 note ("global ray reordering loses") was measured with
-``jnp.argsort`` + materialized row permutes through a full-array host
-readback — both artifacts of the measurement, not the hardware. Measured
-properly (scalar readback, ``lax.sort`` with the ray id as payload, row
-gathers, scatter unsort) the full sort+gather+unsort overhead is ~100 ms
-at 2M rays against a 2.4x kernel win:
-
-* ``lax.sort`` 2M i32 keys + i32 payload ≈ 20 ms
-* ``jnp.take`` of (2M, 3) f32 rows ≈ 15 ms each
-* scatter unsort of the hit record ≈ 60 ms
+Bounce rays are incoherent in pixel order: the rays of one tile
+collectively enter many more clusters than each ray needs. Sorting rays
+by their *two nearest hit clusters* groups rays that start traversal in
+the same part of the scene, so a tile's clusters mostly serve all of its
+rays. Every trace result is grouping-independent (tested); only the work
+per tile changes.
 
 This is the renderer's wavefront-compaction analog as well (BASELINE
 config #5): dead lanes (Russian-roulette kills, misses) sort to the back,
 so whole trailing tiles carry ``t_max = 0`` and exit their round loops
-immediately.
+immediately (or are not traced at all — ``sorted_trace(live_slice=…)``).
 """
 
 from __future__ import annotations
@@ -40,28 +30,23 @@ def nearest_cluster_key(
     t_max: jnp.ndarray,  # (R,) 0 for dead lanes
     boxes: jnp.ndarray,  # (C, 6)
     chunk: int = 65536,
-    t_start: jnp.ndarray | None = None,  # (R,)
 ) -> jnp.ndarray:
     """Coherence key: ``cid0 * (C+1) + cid1`` of the ray's two nearest-entry
-    hit clusters (cid = C when fewer than 1/2 boxes are hit, sorting dead
+    hit boxes (cid = C when fewer than 1/2 boxes are hit, sorting dead
     and miss rays to the back). Computed with the same dense slab test the
-    tracer's shortlist pass uses. ``t_start`` restricts the key to the
-    ray's still-UNPROCESSED clusters (entry value >= t_start — the
-    multipass recompaction skip mask, see ``sorted_trace_multipass``);
-    the key only orders rays, exactness never depends on it."""
+    tracer's near pass uses. The key only orders rays: trace results never
+    depend on it. ``sorted_trace``'s ``live_slice`` does rely on its miss
+    class — a ray keyed as a miss enters none of ``boxes`` (for two-level
+    tables these are the super boxes, which contain every child box)."""
     r = o.shape[0]
     c = boxes.shape[0]
     chunk = min(chunk, max(128, -(-r // 128) * 128))
     inv_d = safe_inv_dir(d)
 
     def per_chunk(args):
-        if t_start is None:
-            oc, ic, tc = args
-            ts = None
-        else:
-            oc, ic, tc, ts = args
+        oc, ic, tc = args
         # per-axis accumulation keeps temporaries 2-D (chunk, C); a
-        # (chunk, C, 3) broadcast de-fuses into multi-GB HBM traffic
+        # (chunk, C, 3) broadcast de-fuses into multi-GB traffic
         near = jnp.full((oc.shape[0], c), -_INF, jnp.float32)
         far = jnp.full((oc.shape[0], c), _INF, jnp.float32)
         for ax in range(3):
@@ -73,15 +58,11 @@ def nearest_cluster_key(
             far = jnp.minimum(far, jnp.maximum(t0, t1))
         hit = (near < far) & (near < tc[:, None]) & (far > MIN_DIST)
         nears = jnp.where(hit, jnp.maximum(near, 0.0), _INF)
-        if ts is not None:
-            nears = jnp.where(nears >= ts[:, None], nears, _INF)
         iota = jax.lax.broadcasted_iota(jnp.int32, nears.shape, 1)
         # pack (near, cid) into one sortable int32 (cid in the mantissa
-        # LSBs — same trick as the kernel's round keys): each "nearest"
-        # pick is ONE min-reduce instead of min + argmin-probe chains.
-        # Near-ties within the truncation granularity break toward the
-        # lower cid; the key only orders rays for coherence, per-ray
-        # trace results are grouping-independent (tested).
+        # LSBs): each "nearest" pick is ONE min-reduce instead of min +
+        # argmin-probe chains. Near-ties within the truncation granularity
+        # break toward the lower cid.
         cbits = max(1, (c - 1).bit_length())
         kmask = (1 << cbits) - 1
         import numpy as _np
@@ -103,652 +84,20 @@ def nearest_cluster_key(
         o = jnp.concatenate([o, jnp.ones((pad, 3), o.dtype)])
         inv_d = jnp.concatenate([inv_d, jnp.ones((pad, 3), o.dtype)])
         t_max = jnp.concatenate([t_max, jnp.zeros((pad,), t_max.dtype)])
-        if t_start is not None:
-            t_start = jnp.concatenate(
-                [t_start, jnp.zeros((pad,), t_start.dtype)]
-            )
     n_chunks = (r + pad) // chunk
     args = (
         o.reshape(n_chunks, chunk, 3),
         inv_d.reshape(n_chunks, chunk, 3),
         t_max.reshape(n_chunks, chunk),
     )
-    if t_start is not None:
-        args = args + (t_start.reshape(n_chunks, chunk),)
     keys = jax.lax.map(per_chunk, args).reshape(-1)[:r]
     return keys
 
 
-def _top2_reduce(pk):
-    """Two smallest packed keys along the last axis in ONE variadic
-    reduction (the top-2 semiring: m1 = min, m2 = second-min), so XLA
-    fuses the slab-test producer into the reduce instead of
-    materializing (R, C) key arrays in HBM twice. Keys are unique
-    (cluster iota in the LSBs), so this equals the masked two-pass
-    extraction bit-for-bit."""
-    big = jnp.int32(0x7FFFFFFF)
-
-    def comb(a, b):
-        a1, a2 = a
-        b1, b2 = b
-        m1 = jnp.minimum(a1, b1)
-        m2 = jnp.minimum(jnp.maximum(a1, b1), jnp.minimum(a2, b2))
-        return m1, m2
-
-    return jax.lax.reduce(
-        (pk, jnp.full_like(pk, big)), (big, big), comb, (pk.ndim - 1,)
-    )
-
-
-def nearest_cluster_key_fused(
-    o: jnp.ndarray,  # (R, 3)
-    d: jnp.ndarray,  # (R, 3)
-    t_max: jnp.ndarray,  # (R,) 0 for dead lanes
-    boxes: jnp.ndarray,  # (C, 6)
-) -> jnp.ndarray:
-    """:func:`nearest_cluster_key` with the top-2 extraction as one
-    variadic reduction — bit-identical keys (measured), ~4x less HBM
-    traffic (the two masked-min passes re-read the packed keys; here the
-    producer fuses into a single reduce)."""
-    import numpy as _np
-
-    r = o.shape[0]
-    c = boxes.shape[0]
-    inv_d = safe_inv_dir(d)
-    cbits = max(1, (c - 1).bit_length())
-    kmask = (1 << cbits) - 1
-    miss_th = int(_np.float32(_INF).view(_np.int32)) & ~kmask
-
-    near = jnp.full((r, c), -_INF, jnp.float32)
-    far = jnp.full((r, c), _INF, jnp.float32)
-    for ax in range(3):
-        t0 = (boxes[None, :, ax] - o[:, ax : ax + 1]) * inv_d[:, ax : ax + 1]
-        t1 = (
-            boxes[None, :, 3 + ax] - o[:, ax : ax + 1]
-        ) * inv_d[:, ax : ax + 1]
-        near = jnp.maximum(near, jnp.minimum(t0, t1))
-        far = jnp.minimum(far, jnp.maximum(t0, t1))
-    hit = (near < far) & (near < t_max[:, None]) & (far > MIN_DIST)
-    nears = jnp.where(hit, jnp.maximum(near, 0.0), _INF)
-    iota = jax.lax.broadcasted_iota(jnp.int32, nears.shape, 1)
-    pk = (jax.lax.bitcast_convert_type(nears, jnp.int32) & ~kmask) | iota
-    k1, k2 = _top2_reduce(pk)
-
-    def cid_of(k):
-        return jnp.where((k & ~kmask) < miss_th, k & kmask, c)
-
-    return cid_of(k1) * (c + 1) + cid_of(k2)
-
-
-def nearest_cluster_keys2(
-    o: jnp.ndarray,  # (R, 3)
-    d: jnp.ndarray,
-    t_max: jnp.ndarray,  # (R,) 0 for dead lanes
-    boxes: jnp.ndarray,  # (C, 6)
-    chunk: int = 65536,
-    n: int = 2,
-) -> tuple[jnp.ndarray, ...]:
-    """Raw top-``n`` (2 or 3) packed ``(near | cid)`` keys per ray —
-    the binned trace's scheduling primitive (:func:`binned_trace`).
-    Unlike :func:`nearest_cluster_key` (which combines the two cids
-    into one coherence ordinal), this returns the raw packed keys so
-    the caller can decode cid1 (the pass-1 bin), near2/near3 (the
-    exact per-pass survivor bounds: an unprocessed cluster can only
-    beat the carried best if its entry distance does) and cid2. Same
-    dense slab test, chunked the same way; top-n via n plain
-    masked-min extraction passes (NOT the variadic ``_top2_reduce`` —
-    XLA:TPU serializes variadic reductions, measured 142 vs ~20 ms at
-    2.07M rays)."""
-    import numpy as _np
-
-    r = o.shape[0]
-    c = boxes.shape[0]
-    chunk = min(chunk, max(128, -(-r // 128) * 128))
-    inv_d = safe_inv_dir(d)
-    cbits = max(1, (c - 1).bit_length())
-    kmask = (1 << cbits) - 1
-
-    def per_chunk(args):
-        oc, ic, tc = args
-        near = jnp.full((oc.shape[0], c), -_INF, jnp.float32)
-        far = jnp.full((oc.shape[0], c), _INF, jnp.float32)
-        for ax in range(3):
-            t0 = (boxes[None, :, ax] - oc[:, ax : ax + 1]) * ic[:, ax : ax + 1]
-            t1 = (
-                boxes[None, :, 3 + ax] - oc[:, ax : ax + 1]
-            ) * ic[:, ax : ax + 1]
-            near = jnp.maximum(near, jnp.minimum(t0, t1))
-            far = jnp.minimum(far, jnp.maximum(t0, t1))
-        hit = (near < far) & (near < tc[:, None]) & (far > MIN_DIST)
-        nears = jnp.where(hit, jnp.maximum(near, 0.0), _INF)
-        iota = jax.lax.broadcasted_iota(jnp.int32, nears.shape, 1)
-        pk = (
-            jax.lax.bitcast_convert_type(nears, jnp.int32) & ~kmask
-        ) | iota
-        # top-n via n plain min-reduces with masked re-reads (see
-        # docstring; keys are unique by the iota LSBs, so successive
-        # masked extraction is bit-identical to a true top-n)
-        ks = []
-        for _ in range(n):
-            k = jnp.min(pk, axis=1)
-            ks.append(k)
-            pk = jnp.where(pk == k[:, None], jnp.int32(0x7FFFFFFF), pk)
-        return tuple(ks)
-
-    pad = (-r) % chunk
-    if pad:
-        o = jnp.concatenate([o, jnp.ones((pad, 3), o.dtype)])
-        inv_d = jnp.concatenate([inv_d, jnp.ones((pad, 3), o.dtype)])
-        t_max = jnp.concatenate([t_max, jnp.zeros((pad,), t_max.dtype)])
-    n_chunks = (r + pad) // chunk
-    ks = jax.lax.map(
-        per_chunk,
-        (
-            o.reshape(n_chunks, chunk, 3),
-            inv_d.reshape(n_chunks, chunk, 3),
-            t_max.reshape(n_chunks, chunk),
-        ),
-    )
-    return tuple(k.reshape(-1)[:r] for k in ks)
-
-
-def _block_schedules(cid_s, n_blocks, tile, c):
-    """Per-block (s0, s1) distinct cluster ids (-1 = skip) + the per-ray
-    "my cid made the schedule" flag. s0 = the block's min cid, s1 = the
-    min of the strictly-greater rest, so ``cid <= s1`` is exactly
-    ``cid in {s0, s1}`` (no value sits between them) — correct for both
-    sorted runs and arbitrary block contents."""
-    vals = cid_s.reshape(n_blocks, tile)
-    s0r = jnp.min(vals, axis=1)
-    s1r = jnp.min(
-        jnp.where(vals > s0r[:, None], vals, jnp.int32(0x7FFFFFFF)),
-        axis=1,
-    )
-    flag = (vals <= s1r[:, None]).reshape(-1)
-    sched = jnp.stack(
-        [
-            jnp.where(s0r < c, s0r, -1),
-            jnp.where(s1r < c, s1r, -1),
-        ],
-        axis=-1,
-    )
-    return sched, flag
-
-
-def binned_trace_any(
-    fn, o, d, t_max, tables, active=None, extra=None, surv_frac=4,
-    tile=128, blocks_per_step=8, interpret=False, mm_passes=3,
-    mid=False,
-):
-    """Any-hit :func:`binned_trace` (shadow-ray semantics): returns the
-    (R,) bool blocked mask in ORIGINAL ray order.
-
-    Shadow legs — light-NEE (bounded t_max) and especially env-NEE
-    (UNBOUNDED t_max: the environment has no distance, so proving
-    visibility walks the ray's whole cluster line; the measured 2.8x
-    config-#3 wall, VERDICT r4 #5/ROADMAP) — are mostly-miss traces
-    where the drain kernel's tile consensus pays the full union per
-    tile. Pass 1 tests each ray's nearest cluster only (any valid hit
-    ends the ray: occluded-ness is existence, any processing order
-    proves the same predicate); survivors — no hit yet AND a second
-    entered cluster exists (``k2`` non-miss), or an unscheduled cid1 —
-    run the any-hit drain kernel compacted to a static ``r/surv_frac``
-    slice with the ``t_start`` skip mask (skips only the strictly-nearer
-    processed cid1), full-width ``lax.cond`` fallback guarding the
-    slice overflow. Exactly the blocked set of the single-pass sorted
-    any-hit trace (tested)."""
-    r0 = o.shape[0]
-    if active is not None:
-        t_max = jnp.where(active, t_max, 0.0)
-    boxes = tables.clusters.sort_box
-    c = boxes.shape[0]
-    cbits = max(1, (c - 1).bit_length())
-    kmask = (1 << cbits) - 1
-    import numpy as _np
-
-    miss_th = int(_np.float32(_INF).view(_np.int32)) & ~kmask
-
-    step = tile * blocks_per_step
-    pad = (-r0) % step
-    if pad:
-        o = jnp.concatenate([o, jnp.ones((pad, 3), o.dtype)])
-        d = jnp.concatenate([d, jnp.ones((pad, 3), d.dtype)])
-        t_max = jnp.concatenate([t_max, jnp.zeros((pad,), t_max.dtype)])
-        if extra is not None:
-            extra = jnp.concatenate(
-                [extra, jnp.full((pad,), -1, jnp.int32)]
-            )
-    r = o.shape[0]
-
-    ks = nearest_cluster_keys2(o, d, t_max, boxes, n=3 if mid else 2)
-    k1, k2 = ks[0], ks[1]
-    cid1 = jnp.where((k1 & ~kmask) < miss_th, k1 & kmask, c)
-    rid = jnp.arange(r, dtype=jnp.int32)
-    have_ex = extra is not None
-    cols, specs, td = _to_cols(
-        (o, d, t_max, k1, k2)
-        + ((ks[2],) if mid else ())
-        + ((extra,) if have_ex else ())
-    )
-    s1 = jax.lax.sort(
-        tuple([cid1, rid] + cols), num_keys=1, is_stable=True
-    )
-    cid_s, rid_s = s1[0], s1[1]
-    ins = _from_cols(list(s1[2:]), specs, td)
-    o_s, d_s, tm_s, k1_s, k2_s = ins[:5]
-    k3_s = ins[5] if mid else k2_s
-    ex_s = ins[5 + int(mid)] if have_ex else None
-
-    n_blocks = r // tile
-    sched, flag = _block_schedules(cid_s, n_blocks, tile, c)
-
-    from .cluster_pallas import trace_binned_pass
-
-    _, f1 = trace_binned_pass(
-        o_s, d_s, tm_s, tables, sched, excl_code=ex_s,
-        interpret=interpret, blocks_per_step=blocks_per_step,
-        mm_passes=mm_passes, tile=tile,
-    )
-    hit1 = f1 >= 0
-
-    live = tm_s > 0.0
-    entered1 = (k1_s & ~kmask) < miss_th
-    entered2 = (k2_s & ~kmask) < miss_th
-    entered3 = (k3_s & ~kmask) < miss_th
-    surv1 = (
-        live
-        & ~hit1
-        & jnp.where(flag, entered2, entered1)
-    )
-
-    # ---- mid pass (cid2-binned), the same cascade as binned_trace:
-    # unresolved rays compact to a half-width slice, re-sort by cid2,
-    # and run one more binned pass — the drain then only sees rays
-    # whose THIRD entered cluster exists (k3). Slice overflow skips
-    # the mid pass (flag2 = False); the drain's own fallback restores
-    # exactness.
-    n_surv1 = jnp.sum(surv1.astype(jnp.int32))
-    w1 = min(r, max(step, (-(-r // 2) + step - 1) // step * step))
-    lane1 = jnp.arange(r, dtype=jnp.int32)
-    perm1 = jax.lax.sort(
-        ((~surv1).astype(jnp.int32), lane1), num_keys=1, is_stable=True
-    )[1]
-    cid2 = jnp.where((k2_s & ~kmask) < miss_th, k2_s & kmask, c)
-
-    def mid_pass(_):
-        idx1 = perm1[:w1]
-        gathered = permute_rows(
-            idx1,
-            (o_s, d_s, tm_s, cid2, surv1) + ((ex_s,) if have_ex else ()),
-        )
-        o_m, d_m, tm_m, cid2_m, sv_m = gathered[:5]
-        ex_m = gathered[5] if have_ex else None
-        tm_m = jnp.where(sv_m, tm_m, 0.0)
-        lid = jnp.arange(w1, dtype=jnp.int32)
-        c2s, sp2, td2 = _to_cols(
-            (o_m, d_m, tm_m) + ((ex_m,) if have_ex else ())
-        )
-        s2 = jax.lax.sort(
-            tuple([cid2_m, lid] + c2s), num_keys=1, is_stable=True
-        )
-        cid2_ss, lid_s = s2[0], s2[1]
-        ins2 = _from_cols(list(s2[2:]), sp2, td2)
-        o_m2, d_m2, tm_m2 = ins2[:3]
-        ex_m2 = ins2[3] if have_ex else None
-        sched2, flag2 = _block_schedules(cid2_ss, w1 // tile, tile, c)
-        _, f2 = trace_binned_pass(
-            o_m2, d_m2, tm_m2, tables, sched2, excl_code=ex_m2,
-            interpret=interpret, blocks_per_step=blocks_per_step,
-            mm_passes=mm_passes, tile=tile,
-        )
-        back = jax.lax.sort(
-            (lid_s, (f2 >= 0).astype(jnp.int32), flag2.astype(jnp.int32)),
-            num_keys=1,
-            is_stable=False,
-        )
-        hit_out = hit1.at[idx1].set(
-            jnp.take(hit1, idx1) | (back[1] != 0)
-        )
-        fl2 = (
-            jnp.zeros((r,), jnp.bool_).at[idx1].set(back[2] != 0)
-        )
-        return hit_out, fl2
-
-    def no_mid(_):
-        return hit1, jnp.zeros((r,), jnp.bool_)
-
-    # ``mid`` defaults OFF for any-hit: shadow-leg survivors already
-    # fit the r/4 drain slice (blocked rays resolve in pass 1, rays
-    # without a second entered cluster are done), and the on-chip A/B
-    # measured the mid pass as pure overhead there — single-pass
-    # binned_any beat the drain leg 224->154 ms (env) / 120->94
-    # (light), while the cascade LOST to it in the same harness
-    # (120->213 env): the surviving rays are the heavy unblocked
-    # line-walkers, whose drain cost compaction cannot cut, so a
-    # second binned pass only adds plumbing (r5 gang_bench sessions).
-    if not mid:
-        hit1b, flag2_full = no_mid(None)
-    elif w1 >= r:
-        hit1b, flag2_full = mid_pass(None)
-    else:
-        hit1b, flag2_full = jax.lax.cond(
-            n_surv1 <= w1, mid_pass, no_mid, None
-        )
-    hit1 = hit1b
-
-    surv = (
-        live
-        & ~hit1
-        & jnp.where(
-            flag & flag2_full,
-            entered3,
-            jnp.where(flag, entered2, entered1),
-        )
-    )
-    # skip mask for the drain: flag rays have processed exactly their
-    # cid1 (strictly nearer than near2 — the same truncated-down bound
-    # as binned_trace), flag&flag2 rays cid1 AND cid2 (below near3);
-    # unflagged rays skip nothing
-    nmask = kmask  # any-hit drain keys carry no slot bits to honor
-    ts2 = jnp.where(
-        flag & flag2_full & entered3,
-        jax.lax.bitcast_convert_type(k3_s & ~nmask, jnp.float32),
-        jnp.where(
-            flag & entered2,
-            jax.lax.bitcast_convert_type(k2_s & ~nmask, jnp.float32),
-            0.0,
-        ),
-    )
-
-    # survivor-compacted any-hit pass (the _recompact_final_pass shape,
-    # specialized to the found/not-found merge): permutation-only
-    # compaction sort (2 columns) + one packed slice-width row gather
-    # + one slice-width scatter-merge — non-survivor rows never move
-    # (same r5 plumbing cut as _recompact_final_pass, see its
-    # docstring)
-    n_surv = jnp.sum(surv.astype(jnp.int32))
-    lane = jnp.arange(r, dtype=jnp.int32)
-    sc = jax.lax.sort(
-        ((~surv).astype(jnp.int32), lane), num_keys=1, is_stable=True
-    )
-    perm = sc[1]
-    w2 = min(r, max(step, (-(-r // surv_frac) + step - 1) // step * step))
-
-    def run_slice(width):
-        def go(_):
-            idx = perm[:width]
-            gathered = permute_rows(
-                idx,
-                (o_s, d_s, tm_s, ts2, surv) + ((ex_s,) if have_ex else ()),
-            )
-            o3, d3, tm3, ts3, sv3 = gathered[:5]
-            ex3 = gathered[5] if have_ex else None
-            # non-survivor rows inside the slice are inert (tm = 0)
-            tm3 = jnp.where(sv3, tm3, 0.0)
-            h = fn(
-                o3, d3, tm3, tables, None, excl_code=ex3, t_start=ts3
-            )
-            found = h.face >= 0
-            return hit1.at[idx].set(jnp.take(hit1, idx) | found)
-
-        return go
-
-    if w2 >= r:
-        blocked_s = run_slice(r)(None)
-    else:
-        blocked_s = jax.lax.cond(
-            n_surv <= w2, run_slice(w2), run_slice(r), None
-        )
-    unsorted = jax.lax.sort(
-        (rid_s, blocked_s.astype(jnp.int32)), num_keys=1, is_stable=False
-    )
-    return (unsorted[1] != 0)[:r0]
-
-
-def binned_trace(
-    fn, o, d, t_max, tables, active=None, extra=None, surv_frac=3,
-    tile=128, blocks_per_step=8, interpret=False, mm_passes=3,
-):
-    """Per-ray-scheduled sorted trace (closest-hit): the round-5
-    work-volume attack (ROADMAP "kernel ceiling ledger").
-
-    The drain kernels pay ~12 cluster-units per 128-ray tile against a
-    measured per-ray need of 1.34, at a scheduling-invariant
-    MXU-depth-limited unit cost. Here pass 1 executes exactly each
-    ray's NEAREST cluster: rays sort cid1-major (one stable
-    payload-carrying ``lax.sort``, the same plumbing cost as
-    :func:`sorted_trace`), every 128-ray block runs the ≤ 2 distinct
-    cluster ids it spans (:func:`~.cluster_pallas.trace_binned_pass` —
-    ~1.02 units/block; no tile-near pass, the top-2 key pass subsumes
-    it), SURVIVORS run a second (cid2-binned) pass on a half-width
-    compacted slice, and the remaining survivors go through the proven
-    survivor-compacted drain pass (:func:`_recompact_final_pass`) with
-    the multipass ``t_start`` skip mask. Measured survivor fractions on
-    a real 1080p-scale bounce wave (CPU-exact probe + the gang_bench
-    ``bpiece_sfrac`` arm): 42% after pass 1 (that overflows ANY
-    affordable drain slice, which is why the mid pass exists), 25.5%
-    after the mid pass (mostly not-yet-hit rays whose line enters a
-    third cluster, the r2 analysis' irreducible miss tail) — hence the
-    default drain slice of r/3 (r/4 overflows by half a percent and
-    the ``lax.cond`` would take the full-width drain fallback every
-    leg).
-
-    The survivor condition is exact and per-ray: with ``flag`` = "my
-    cid1 made my block's schedule" (cid_sorted <= the block's second
-    distinct id — blocks are ascending runs), a ray needs more work iff
-
-    * ``flag`` and ``trunc(near2) <= (bitcast(t_best) | sl_mask)`` —
-      the second-nearest entered cluster could still beat the carried
-      best (``| sl_mask`` restores the packed key's truncated LSBs to
-      an upper bound, the drain kernels' own prune-bound rounding); or
-    * ``not flag`` (rare: a block spanning 3+ segments) — nothing is
-      proven processed, the ray survives unconditionally with
-      ``t_start = 0`` (exact: no cluster is skipped).
-
-    ``stop`` encodes both as the multipass per-ray stop key (survivor
-    iff ``bitcast(t) > stop``; ``t_start = f32(stop)``): ``flag`` rays
-    get ``max(trunc(near2) - 1, 0)`` (skips exactly the strictly-nearer
-    = processed cid1; clamp keeps f32(stop) a number), others 0, dead
-    rays INT32_MAX. Extra processing is always safe (the matmul finds
-    only true hits; the merge is an idempotent packed-key min), missing
-    processing is exactly what ``stop`` accounts for — hence
-    bit-identity with :func:`sorted_trace` (tested).
-
-    ``fn`` must be the drain-kernel partial with ``derive_uv=False``
-    (single-level VMEM tables). Returns ``(t, face)`` in ORIGINAL ray
-    order."""
-    import numpy as _np
-
-    r0 = o.shape[0]
-    if active is not None:
-        t_max = jnp.where(active, t_max, 0.0)
-    boxes = tables.clusters.sort_box
-    c = boxes.shape[0]
-    cbits = max(1, (c - 1).bit_length())
-    kmask = (1 << cbits) - 1
-    miss_th = int(_np.float32(_INF).view(_np.int32)) & ~kmask
-    n_s = tables.clusters.face_id.shape[1]
-    sl_mask = (1 << max(1, (n_s - 1).bit_length())) - 1
-
-    # pad to a whole number of kernel grid steps BEFORE the sort: pad
-    # rays are dead (t_max = 0, cid1 = c) and sort to the back
-    step = tile * blocks_per_step
-    pad = (-r0) % step
-    if pad:
-        o = jnp.concatenate([o, jnp.ones((pad, 3), o.dtype)])
-        d = jnp.concatenate([d, jnp.ones((pad, 3), d.dtype)])
-        t_max = jnp.concatenate([t_max, jnp.zeros((pad,), t_max.dtype)])
-        if extra is not None:
-            extra = jnp.concatenate(
-                [extra, jnp.full((pad,), -1, jnp.int32)]
-            )
-    r = o.shape[0]
-
-    k1, k2, k3 = nearest_cluster_keys2(o, d, t_max, boxes, n=3)
-    cid1 = jnp.where((k1 & ~kmask) < miss_th, k1 & kmask, c)
-    rid = jnp.arange(r, dtype=jnp.int32)
-    have_ex = extra is not None
-    cols, specs, td = _to_cols(
-        (o, d, t_max, k2, k3) + ((extra,) if have_ex else ())
-    )
-    s1 = jax.lax.sort(
-        tuple([cid1, rid] + cols), num_keys=1, is_stable=True
-    )
-    cid_s, rid_s = s1[0], s1[1]
-    ins = _from_cols(list(s1[2:]), specs, td)
-    o_s, d_s, tm_s, k2_s, k3_s = ins[:5]
-    ex_s = ins[5] if have_ex else None
-
-    n_blocks = r // tile
-    sched, flag = _block_schedules(cid_s, n_blocks, tile, c)
-
-    from .cluster_pallas import trace_binned_pass
-
-    t1, f1 = trace_binned_pass(
-        o_s, d_s, tm_s, tables, sched, excl_code=ex_s,
-        interpret=interpret, blocks_per_step=blocks_per_step,
-        mm_passes=mm_passes, tile=tile,
-    )
-
-    # per-ray stop key (see docstring); dead rays can never survive.
-    # near2 is truncated by kmask AND sl_mask: the survivor test
-    # "bitcast(t) > stop" must fire whenever (t | sl_mask) >= near2,
-    # and with the slot bits cleared on both sides that reduces to the
-    # plain int compare (clearing only kmask is NOT enough when the
-    # scene has fewer cid bits than slot bits — small test scenes)
-    nmask = kmask | sl_mask
-    k2n = k2_s & ~nmask
-    k3n = k3_s & ~nmask
-    live = tm_s > 0.0
-    stop1 = jnp.where(
-        live,
-        jnp.where(flag, jnp.maximum(k2n - 1, 0), 0),
-        jnp.int32(0x7FFFFFFF),
-    )
-
-    # ---- mid pass (cid2-binned): the pass-1 survivor fraction is
-    # ~42% on real bounce waves (bpiece_sfrac) — far past any
-    # affordable drain slice, so sf4/sf8 always took the full-width
-    # drain fallback and the binned leg degenerated to drain + pass-1
-    # overhead. Processing each survivor's SECOND-nearest cluster
-    # exactly (compact to a mid_frac slice, re-sort by cid2, same
-    # binned kernel) leaves only rays whose THIRD-nearest entered
-    # cluster could still beat their best (plus schedule misses) for
-    # the drain — the top-3 key's k3 gives that bound the same way k2
-    # gave pass 1's. Overflow of the mid slice falls back to skipping
-    # the mid pass entirely (flag2 = False everywhere): the final
-    # drain pass's own full-width fallback then restores exactness.
-    surv1 = jax.lax.bitcast_convert_type(t1, jnp.int32) > stop1
-    n_surv1 = jnp.sum(surv1.astype(jnp.int32))
-    mid_frac = 2
-    w1 = min(r, max(step, (-(-r // mid_frac) + step - 1) // step * step))
-    lane = jnp.arange(r, dtype=jnp.int32)
-    perm1 = jax.lax.sort(
-        ((~surv1).astype(jnp.int32), lane), num_keys=1, is_stable=True
-    )[1]
-    cid2 = jnp.where((k2_s & ~kmask) < miss_th, k2_s & kmask, c)
-
-    def mid_pass(_):
-        idx1 = perm1[:w1]
-        gathered = permute_rows(
-            idx1,
-            (o_s, d_s, t1, f1, cid2, surv1) + ((ex_s,) if have_ex else ()),
-        )
-        o_m, d_m, t_m, f_m, cid2_m, sv_m = gathered[:6]
-        ex_m = gathered[6] if have_ex else None
-        # dead rows inside the slice (non-survivors) are inert; the
-        # carried best rides as t_max (packed-truncated, exactly the
-        # drain survivor pass's contract)
-        tm_m = jnp.where(sv_m, t_m, 0.0)
-        lid = jnp.arange(w1, dtype=jnp.int32)
-        c2s, sp2, td2 = _to_cols(
-            (o_m, d_m, tm_m) + ((ex_m,) if have_ex else ())
-        )
-        s2 = jax.lax.sort(
-            tuple([cid2_m, lid] + c2s), num_keys=1, is_stable=True
-        )
-        cid2_ss, lid_s = s2[0], s2[1]
-        ins2 = _from_cols(list(s2[2:]), sp2, td2)
-        o_m2, d_m2, tm_m2 = ins2[:3]
-        ex_m2 = ins2[3] if have_ex else None
-        sched2, flag2 = _block_schedules(cid2_ss, w1 // tile, tile, c)
-        t2, f2 = trace_binned_pass(
-            o_m2, d_m2, tm_m2, tables, sched2, excl_code=ex_m2,
-            interpret=interpret, blocks_per_step=blocks_per_step,
-            mm_passes=mm_passes, tile=tile,
-        )
-        # unsort the slice (lid) and merge in place; improvements only
-        # (the kernel's packed-key result vs the packed carried best)
-        back = jax.lax.sort(
-            (
-                lid_s,
-                jax.lax.bitcast_convert_type(t2, jnp.int32),
-                f2,
-                flag2.astype(jnp.int32),
-            ),
-            num_keys=1,
-            is_stable=False,
-        )
-        t2u = jax.lax.bitcast_convert_type(back[1], jnp.float32)
-        imp = back[2] >= 0
-        t_out = t1.at[idx1].set(jnp.where(imp, t2u, jnp.take(t1, idx1)))
-        f_out = f1.at[idx1].set(
-            jnp.where(imp, back[2], jnp.take(f1, idx1))
-        )
-        fl2 = (
-            jnp.zeros((r,), jnp.bool_)
-            .at[idx1]
-            .set(back[3] != 0)
-        )
-        return t_out, f_out, fl2
-
-    def no_mid(_):
-        return t1, f1, jnp.zeros((r,), jnp.bool_)
-
-    if w1 >= r:
-        t1b, f1b, flag2_full = mid_pass(None)
-    else:
-        t1b, f1b, flag2_full = jax.lax.cond(
-            n_surv1 <= w1, mid_pass, no_mid, None
-        )
-
-    # final stop: both nearest clusters proven processed -> the bound
-    # moves to near3 (clusters with entry below near3 are exactly
-    # {cid1, cid2}); cid1 only -> near2; neither -> 0
-    stop = jnp.where(
-        live,
-        jnp.where(
-            flag & flag2_full,
-            jnp.maximum(k3n - 1, 0),
-            jnp.where(flag, jnp.maximum(k2n - 1, 0), 0),
-        ),
-        jnp.int32(0x7FFFFFFF),
-    )
-
-    t_fin, f_fin, rid_c = _recompact_final_pass(
-        fn, o_s, d_s, ex_s, t1b, f1b, stop, rid_s, tables, boxes,
-        surv_frac,
-    )
-    unsorted = jax.lax.sort(
-        (
-            rid_c,
-            jax.lax.bitcast_convert_type(t_fin, jnp.int32),
-            f_fin,
-        ),
-        num_keys=1,
-        is_stable=False,
-    )
-    return (
-        jax.lax.bitcast_convert_type(unsorted[1], jnp.float32)[:r0],
-        unsorted[2][:r0],
-    )
-
-
 def _pack_cols(tree):
     """Flatten a pytree of (R,)/(R, k) 4-byte-dtype arrays into one
-    (R, L) int32 matrix (bitcast; bool widens to i32). Per-lane HBM
-    gathers/scatters cost by row count far more than byte count, so one
-    wide op beats a per-leaf op per leaf."""
+    (R, L) int32 matrix (bitcast; bool widens to i32), so a permutation
+    is one wide row op instead of one op per leaf."""
     import numpy as _np
 
     leaves, treedef = jax.tree.flatten(tree)
@@ -781,9 +130,7 @@ def _unpack_cols(packed, specs, treedef):
             x = jax.lax.bitcast_convert_type(xi, dtype)
         else:
             x = xi
-        # row count comes from the packed matrix, not the spec: a
-        # slice-width gather (permute_rows with fewer indices than
-        # rows, the survivor compaction) legitimately shrinks it
+        # row count comes from the packed matrix, not the spec
         out.append(x.reshape((packed.shape[0],) + shp[1:]))
     return jax.tree.unflatten(treedef, out)
 
@@ -839,236 +186,6 @@ def _from_cols(cols, specs, treedef):
     return jax.tree.unflatten(treedef, out)
 
 
-def _recompact_final_pass(
-    fn, o_s, d_s, ex_s, t_cur, f_cur, stop, rid_s, tables, boxes,
-    surv_frac,
-):
-    """Uncapped final pass over the pass-1 SURVIVORS only, compacted to a
-    static ``r / surv_frac`` slice.
-
-    The first multipass implementation ran its second pass at full ray
-    width: a full-width nearest-cluster key (O(R·C) slab tests), a
-    full-width sort, a full-width tile-nears pass and a full-width kernel
-    grid — ~150 ms/frame of plumbing that on chip ERASED the capped-pass
-    work saving (mp2 1057 / mp4 1035 vs 881 ms single-pass, r4
-    frame_profile). But survivors are 3–5% of rays (tools/
-    multipass_sim.py), so: one full-width COMPACTION sort moves survivors
-    to the front (stable — pass-1 coherence order is kept inside each
-    class), and the key/sort/near/kernel all run on the static slice.
-    Exactness is preserved by construction: rows past the slice are
-    touched only when ``n_surv <= slice`` holds (the ``lax.cond``
-    predicate), otherwise the FULL-width pass (the proven-correct
-    fallback) runs instead — both branches are compiled, the cheap one
-    executes in practice. Returns ``(t, f, rid)`` with non-survivor
-    rows IN PLACE (the given sorted-stream order) and survivor results
-    scatter-merged over them (the caller's final unsort-by-rid is
-    order-agnostic).
-
-    r5 cost shape (after the piece attribution of the binned leg): the
-    original compaction rode the full payload (~13 i32 columns) through
-    a full-width stable sort and gathered the non-survivor TAIL back
-    out of it. Both are avoidable: sort only ``(class, lane)`` for the
-    compacted PERMUTATION (2 columns), gather just the ``w2`` slice
-    rows it selects (one packed slice-width row gather), and merge the
-    slice results back with one slice-width scatter — non-survivors
-    never move at all."""
-    r = o_s.shape[0]
-    have_ex = ex_s is not None
-    surv = jax.lax.bitcast_convert_type(t_cur, jnp.int32) > stop
-    n_surv = jnp.sum(surv.astype(jnp.int32))
-    t_start = jax.lax.bitcast_convert_type(stop, jnp.float32)
-    lane = jnp.arange(r, dtype=jnp.int32)
-    sc = jax.lax.sort(
-        ((~surv).astype(jnp.int32), lane), num_keys=1, is_stable=True
-    )
-    perm = sc[1]  # survivor lanes first, original order within classes
-    w2 = min(r, max(128, (-(-r // surv_frac) + 127) // 128 * 128))
-
-    def run_slice(width):
-        def go(_):
-            idx = perm[:width]
-            gathered = permute_rows(
-                idx,
-                (o_s, d_s, t_start, t_cur, f_cur, surv)
-                + ((ex_s,) if have_ex else ()),
-            )
-            o2, d2, ts2, t2, f2, sv2 = gathered[:6]
-            ex2 = gathered[6] if have_ex else None
-            tm2 = jnp.where(sv2, t2, 0.0)
-            key2 = nearest_cluster_key(o2, d2, tm2, boxes, t_start=ts2)
-            lid = jnp.arange(width, dtype=jnp.int32)
-            c2, sp2, td2 = _to_cols(
-                (o2, d2, tm2, ts2, t2, f2) + ((ex2,) if have_ex else ())
-            )
-            s2 = jax.lax.sort(
-                tuple([key2, lid] + c2), num_keys=1, is_stable=True
-            )
-            lid_s = s2[1]
-            ins2 = _from_cols(list(s2[2:]), sp2, td2)
-            o3, d3, tm3, ts3, t3, f3 = ins2[:6]
-            ex3 = ins2[6] if have_ex else None
-            hit = fn(
-                o3, d3, tm3, tables, None, excl_code=ex3, t_start=ts3
-            )
-            imp = hit.face >= 0
-            t_new = jnp.where(imp, hit.t, t3)
-            f_new = jnp.where(imp, hit.face, f3)
-            back = jax.lax.sort(
-                (
-                    lid_s,
-                    jax.lax.bitcast_convert_type(t_new, jnp.int32),
-                    f_new,
-                ),
-                num_keys=1,
-                is_stable=False,
-            )
-            t_out = t_cur.at[idx].set(
-                jax.lax.bitcast_convert_type(back[1], jnp.float32)
-            )
-            f_out = f_cur.at[idx].set(back[2])
-            return t_out, f_out
-
-        return go
-
-    if w2 >= r:
-        t_fin, f_fin = run_slice(r)(None)
-    else:
-        t_fin, f_fin = jax.lax.cond(
-            n_surv <= w2, run_slice(w2), run_slice(r), None
-        )
-    return t_fin, f_fin, rid_s
-
-
-def sorted_trace_multipass(
-    fn, o, d, t_max, tables, active=None, extra=None, cap=4, passes=2,
-    surv_frac=8,
-):
-    """Capped-rounds + recompaction sorted trace (closest-hit only).
-
-    Production's round loop spends by TILE CONSENSUS: epilogue work/ray
-    = tile_rounds × 4S (12.0 at T=128 on the bundled scene) while the
-    per-ray need is ~1.3 clusters — a ~9× waste multiplier that no
-    round-scheduling scheme could recover (ROADMAP r4: lockstep flat,
-    small tiles slower, sched-kernel tie). This attacks the waste
-    directly, per the exact CPU study (tools/multipass_sim.py, work/ray
-    12.04 → 5.62 at cap=4 with serial-round parity): pass 1 runs every
-    tile for at most ``cap`` lockstep rounds; surviving rays (their
-    carried best still beatable by an unprocessed cluster — the
-    kernel-exported per-tile stop key decides, see
-    ``trace_closest_clustered_pallas`` ``return_stop``) are re-sorted
-    by their next NEEDED cluster (the same nearest-cluster key, masked
-    to entry values >= the stop bound) and traced again with the exact
-    per-ray ``t_start`` skip mask; the final pass is uncapped.
-
-    Bit-identical to the single-pass sorted trace: the skip mask only
-    removes provably-processed clusters (conservative by the key-order
-    invariant), re-grouping only changes which EXTRA union clusters a
-    ray is tested against, and extra candidates never win (the same
-    grouping-independence invariant the single-pass tile sort relies
-    on); the pass merge is the kernel's own packed-key min, split
-    associatively. ``fn`` must be the Pallas trace partial with
-    ``derive_uv=False``. Returns ``(t, face)`` in ORIGINAL ray order.
-
-    ``surv_frac`` applies only to ``passes == 2`` (the production
-    shape): its survivor-compacted final pass replaces the full-width
-    one. With ``passes >= 3`` every pass — including the last — runs at
-    full ray width (the on-chip measurement that motivated compaction,
-    mp2_p3 1281 ms vs 879 ms default at 1080p, r5 frame_profile, says
-    don't use that shape for perf; it remains the exactness reference
-    for the associative pass merge).
-    """
-    r = o.shape[0]
-    if active is not None:
-        t_max = jnp.where(active, t_max, 0.0)
-    boxes = tables.clusters.sort_box
-    have_ex = extra is not None
-    key = nearest_cluster_key(o, d, t_max, boxes)
-    rid = jnp.arange(r, dtype=jnp.int32)
-    cols, specs, td = _to_cols(
-        (o, d, t_max) + ((extra,) if have_ex else ())
-    )
-    s1 = jax.lax.sort(tuple([key, rid] + cols), num_keys=1, is_stable=True)
-    rid_s = s1[1]
-    ins = _from_cols(list(s1[2:]), specs, td)
-    o_s, d_s, tm_s = ins[:3]
-    ex_s = ins[3] if have_ex else None
-    hit, stop = fn(
-        o_s, d_s, tm_s, tables, None, excl_code=ex_s,
-        cap=cap, return_stop=True,
-    )
-    t_cur, f_cur = hit.t, hit.face
-
-    if passes == 2:
-        # the production shape: ONE capped pass + ONE survivor-compacted
-        # uncapped pass (full-width second passes measured as a net
-        # frame LOSS — see _recompact_final_pass)
-        t_cur, f_cur, rid_s = _recompact_final_pass(
-            fn, o_s, d_s, ex_s, t_cur, f_cur, stop, rid_s, tables,
-            boxes, surv_frac,
-        )
-        unsorted = jax.lax.sort(
-            (
-                rid_s,
-                jax.lax.bitcast_convert_type(t_cur, jnp.int32),
-                f_cur,
-            ),
-            num_keys=1,
-            is_stable=False,
-        )
-        return (
-            jax.lax.bitcast_convert_type(unsorted[1], jnp.float32),
-            unsorted[2],
-        )
-
-    for p in range(1, passes):
-        last = p == passes - 1
-        # survivor iff an unprocessed cluster could still beat the
-        # carried best: int-space compare handles the drained-tile
-        # sentinel without NaN semantics
-        surv = jax.lax.bitcast_convert_type(t_cur, jnp.int32) > stop
-        tm_n = jnp.where(surv, t_cur, 0.0)
-        t_start = jax.lax.bitcast_convert_type(stop, jnp.float32)
-        key_n = nearest_cluster_key(o_s, d_s, tm_n, boxes, t_start=t_start)
-        cols_n, specs_n, td_n = _to_cols(
-            (o_s, d_s, tm_n, t_start, t_cur, f_cur)
-            + ((ex_s,) if have_ex else ())
-        )
-        s_n = jax.lax.sort(
-            tuple([key_n, rid_s] + cols_n), num_keys=1, is_stable=True
-        )
-        rid_s = s_n[1]
-        ins_n = _from_cols(list(s_n[2:]), specs_n, td_n)
-        o_s, d_s, tm_s, ts_s, t_prev, f_prev = ins_n[:6]
-        ex_s = ins_n[6] if have_ex else None
-        if last:
-            hit_n = fn(
-                o_s, d_s, tm_s, tables, None, excl_code=ex_s,
-                t_start=ts_s,
-            )
-        else:
-            hit_n, stop = fn(
-                o_s, d_s, tm_s, tables, None, excl_code=ex_s,
-                t_start=ts_s, cap=cap, return_stop=True,
-            )
-        improved = hit_n.face >= 0
-        t_cur = jnp.where(improved, hit_n.t, t_prev)
-        f_cur = jnp.where(improved, hit_n.face, f_prev)
-
-    unsorted = jax.lax.sort(
-        (
-            rid_s,
-            jax.lax.bitcast_convert_type(t_cur, jnp.int32),
-            f_cur,
-        ),
-        num_keys=1,
-        is_stable=False,
-    )
-    return (
-        jax.lax.bitcast_convert_type(unsorted[1], jnp.float32),
-        unsorted[2],
-    )
-
-
 def sorted_trace(trace_fn, o, d, t_max, tables, active=None, extra=None,
                  live_slice=None, tail=None):
     """Run ``trace_fn(o, d, t_max, tables, active)`` with rays permuted by
@@ -1081,28 +198,17 @@ def sorted_trace(trace_fn, o, d, t_max, tables, active=None, extra=None,
     ``live_slice * r`` rows of the sorted stream: rays with no entered
     cluster — dead lanes (RR kills, prior misses) and live rays whose
     line hits no cluster box — key to the miss class at the BACK of
-    the sort, where the kernel proves them misses at full fixed cost
-    (tile-near rows, per-tile drain setup) for a result the key
-    already knows. Measured live fractions on the default frame: 62%
-    at the first bounce segment, 31% at the second (livefrac probe,
-    r5) — while each such leg still cost ~148 ms of mostly fixed
-    plumbing. The slice is exact: the cond predicate counts non-miss
-    keys, the sliced branch concatenates ``tail(tm_s[w:])`` (the
-    caller's miss constructor — misses are determined for keyless
-    rays), and slicing at a 128-multiple preserves every surviving
-    tile's ray grouping bit-for-bit; overflow runs the full-width
-    branch.
+    the sort, and their result is already known. The slice is exact:
+    the cond predicate counts non-miss keys, the sliced branch
+    concatenates ``tail(tm_s[w:])`` (the caller's miss constructor),
+    and slicing at a 128-multiple preserves every surviving tile's ray
+    grouping bit-for-bit; overflow runs the full-width branch.
 
-    Both permutation legs ride the SORT NETWORK itself: ``lax.sort``
-    carries payload operands at essentially the cost of the bare key
-    sort (measured at 2.07M rays: 8 i32 payload columns cost +1.8 ms
-    over the key-only sort), while a separate per-lane row gather is
-    ~35 ms and an unsort scatter 30-200 ms (scatters are ~6x gathers on
-    this part — tools/profile_legs.py). So the forward leg is ONE
-    stable sort of (key | rid | ray columns), and the unsort is ONE
-    sort of (rid_s | result columns) — rid_s is a permutation, so
-    sorting by it restores pixel order exactly; no gather or scatter
-    remains in the sorted-trace plumbing."""
+    Both permutation legs ride the sort itself: the forward leg is ONE
+    stable sort of (key | rid | ray columns), and the unsort is ONE sort
+    of (rid_s | result columns) — rid_s is a permutation, so sorting by
+    it restores pixel order exactly, with no separate gather or
+    scatter."""
     r = o.shape[0]
     if active is not None:
         t_max = jnp.where(active, t_max, 0.0)

@@ -43,16 +43,14 @@ def panini_dir(
         jnp.sin(half_fov), jnp.cos(half_fov) + panini_distance
     )
     hv_pan = hv * half_panini_fov
-    # det_sincos/det_tan: XLA:TPU's polynomial trig is 1-2 ulp off
-    # XLA:CPU on ~25% of lanes (tools/op_determinism.py; the staged
-    # raygen probe localizes the whole remaining CPU↔TPU raygen
-    # divergence here), and every camera direction feeds chaotic path
+    # det_sincos/det_tan: each backend's polynomial trig may differ by
+    # an ulp or two, and every camera direction feeds chaotic path
     # divergence. The double-f32 versions are bit-identical across
-    # platforms and ≈ correctly rounded (≤1e-7 draws off libm).
+    # backends and ≈ correctly rounded (ops/detmath.py).
     sx, cx = _det_sincos(hv_pan[..., 0])
-    # strict products: XLA:TPU fuses these mul/add chains into FMAs
-    # (1-ulp off XLA:CPU's strict evaluation — the WGSL/scalar
-    # semantics); smul rounds each product first (ops/strictf.py)
+    # strict products: a backend may fuse these mul/add chains into
+    # FMAs (1 ulp off the strict WGSL/scalar evaluation); smul rounds
+    # each product first (ops/strictf.py)
     from .strictf import smul as _smul
 
     from .detmath import det_sqrt as _det_sqrt
@@ -119,8 +117,8 @@ def camera_rays(
         lens = rng.sample_insquare(t2)
 
     # thinLensRay (render.ts:695-702). Strict products (ops/strictf.py):
-    # the lens/focus muls feed subtractions XLA:TPU would contract to
-    # FMAs, diverging 1 ulp from XLA:CPU/scalar evaluation.
+    # the lens/focus muls feed subtractions a backend may contract to
+    # FMAs, diverging 1 ulp from the scalar evaluation.
     from .strictf import smul as _smul2
 
     o = jnp.concatenate(
@@ -142,9 +140,9 @@ def camera_rays(
         )
 
     # ray_transform (render.ts:731-738), expanded to strict elementwise
-    # mul/adds: jnp's small-matmul lowering on TPU uses bf16 MXU passes
-    # at DEFAULT precision AND different accumulation order than CPU —
-    # unacceptable for the transform every ray goes through.
+    # mul/adds: a small matmul may run at reduced precision (TF32 on a
+    # GPU at DEFAULT precision) with another accumulation order than the
+    # CPU — unacceptable for the transform every ray goes through.
     def _mat_vec(mat, v3, w):  # rows of (4,4) or (3,3) mat · [v3, w]
         cols = []
         for j in range(mat.shape[0]):

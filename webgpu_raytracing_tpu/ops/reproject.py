@@ -7,7 +7,7 @@ projects a world-space hit point into previous-frame pixel coordinates as
 two plane-distance ratios. Validation compares the candidate's
 previous-frame G-buffer position to the point; on mismatch a *stochastic
 local search* (bounded 128 probes with shrinking step) hunts for the true
-source pixel — here a masked ``lax.fori_loop``, the TPU shape of the
+source pixel — here a masked ``lax.fori_loop``, the array-program shape of the
 reference's data-dependent loop (render.ts:1079-1094). An optional 5×5
 bilateral filter blends neighbors by position+color distance
 (render.ts:1027-1059)."""
@@ -90,7 +90,10 @@ def reproject_point(
     """reprojectPoint (render.ts:1022-1025): duv = M (p - o);
     uv = duv.xy / duv.zw."""
     rel = p - prev_origin[None, :]
-    duv = rel @ frustum.T  # (R, 4): left, top, c, d distances
+    # HIGHEST: a default-precision f32 product may run in TF32 on a GPU
+    duv = jnp.matmul(
+        rel, frustum.T, precision=jax.lax.Precision.HIGHEST
+    )  # (R, 4): left, top, c, d distances
     return duv[..., 0:2] / duv[..., 2:4]
 
 

@@ -78,11 +78,10 @@ def masked_advance(state, new_state, active):
 def sample_circle(t):
     """rng.ts:69-72 — point on the unit circle.
 
-    det_sincos (ops/detmath.py): per-lane trig is the one raygen/sampler
-    primitive whose XLA:TPU lowering differs from XLA:CPU by 1-2 ulp on
-    ~25% of lanes; lens and bounce directions inherit it and chaotic
-    path divergence amplifies it into whole-image cross-platform RMSE.
-    The double-f32 version is bit-identical across platforms."""
+    det_sincos (ops/detmath.py): per-lane trig lowers differently per
+    backend (an ulp or two); lens and bounce directions inherit it and
+    chaotic path divergence amplifies it into whole-image cross-backend
+    RMSE. The double-f32 version is bit-identical across backends."""
     from .detmath import det_sincos
 
     phi = t * TWO_PI
@@ -92,7 +91,7 @@ def sample_circle(t):
 
 def sample_incircle(t):
     """rng.ts:74-76 — uniform in unit disc; t is (..., 2).
-    det_sqrt: TPU's in-fusion sqrt is 1 ulp off CPU's (detmath)."""
+    det_sqrt: an in-fusion sqrt may be 1 ulp off (detmath)."""
     from .detmath import det_sqrt
 
     return sample_circle(t[..., 0]) * det_sqrt(t[..., 1])[..., None]
@@ -101,8 +100,8 @@ def sample_incircle(t):
 def sample_sphere(t):
     """rng.ts:102-109 — uniform on unit sphere; t is (..., 2).
     det_sincos: see :func:`sample_circle`. Strict products (strictf):
-    the u² and sinθ·trig muls otherwise contract into neighbouring adds
-    as FMAs on TPU (1 ulp off CPU), and the result feeds every bounce
+    the u² and sinθ·trig muls otherwise may contract into neighbouring
+    adds as FMAs (1 ulp off strict), and the result feeds every bounce
     direction through ``normalize(n + sphere)``."""
     from .detmath import det_sincos, det_sqrt
     from .strictf import smul

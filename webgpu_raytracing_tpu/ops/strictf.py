@@ -20,11 +20,10 @@ The only consumer that can see the difference is offsetRay's bitcast
 path, where both ±0 produce a NaN origin — behaviour-identical.)
 
 Used by the Möller–Trumbore evaluators that define cross-implementation
-parity (ops/intersect.py, cluster_trace exact re-adjudication,
-cluster_pallas adjudicate_pair/rederive_uv) and the hit-point
-reconstruction chain (facePoint / offsetRay / faceNormal), so the
+parity (ops/intersect.py, cluster_trace exact re-adjudication) and the
+hit-point reconstruction chain (facePoint / offsetRay / faceNormal), so the
 framework's intersection DECISIONS match the WGSL-semantics simulator
-(validation/wgsl_sim.py) bit-for-bit under jit on CPU and TPU alike.
+(validation/wgsl_sim.py) bit-for-bit under jit on every backend.
 """
 
 from __future__ import annotations

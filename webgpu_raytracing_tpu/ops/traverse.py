@@ -1,6 +1,6 @@
-"""Stackless BVH traversal over ray batches (pure JAX, jit/TPU friendly).
+"""Stackless BVH traversal over ray batches (pure JAX, jit friendly).
 
-This is the TPU-native replacement for the reference's per-thread stack
+This is the array-program replacement for the reference's per-thread stack
 walk (render.ts:433-640). The build threads every preorder tree with skip
 links (:mod:`..models.bvh`), so traversal is one uniform loop per ray:
 

@@ -1,7 +1,7 @@
 """Debug BVH wireframe (reference K17, render.ts:1517-1630).
 
 The reference instanced-draws 12 line-list edges per BVH AABB with an
-additive-ish blend (each fragment adds 0.01). The TPU equivalent is a
+additive-ish blend (each fragment adds 0.01). The equivalent here is a
 vectorized line rasterizer: project all 8 corners of every node AABB with
 the view-projection matrix, clip, and accumulate the 12 edges of every box
 into an (H, W) intensity buffer with a fixed number of samples per edge —
@@ -9,6 +9,7 @@ a scatter-add, the natural XLA shape for additive blending."""
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -49,7 +50,10 @@ def rasterize_bvh_wireframe(
     hom = jnp.concatenate(
         [corners, jnp.ones((n, 8, 1), jnp.float32)], axis=-1
     )
-    clip = hom @ view_proj.T  # (N, 8, 4)
+    # HIGHEST: a default-precision f32 product may run in TF32 on a GPU
+    clip = jnp.matmul(
+        hom, view_proj.T, precision=jax.lax.Precision.HIGHEST
+    )  # (N, 8, 4)
 
     e = jnp.asarray(_EDGES)
     a = clip[:, e[:, 0], :]  # (N, 12, 4)

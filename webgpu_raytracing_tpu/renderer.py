@@ -3,7 +3,7 @@
 The reference's per-frame flow (render.ts:1651-1710) writes seed / counter
 / jitter uniforms, dispatches the megakernel over 16×16 workgroups, blits
 with tonemapping, and rotates prev-frame buffers with buffer-to-buffer
-copies. TPU-native shape:
+copies. Shape here:
 
 * the accumulation image is an explicit ``(H, W, 4)`` array — rgb sum in
   ``[..., :3]``, accumulated sample count in ``[..., 3]`` — exactly the
@@ -347,9 +347,7 @@ def render_frame_slabs(
     ``frame_slabs`` horizontal slabs, one jitted :func:`render_tile`
     call each (compiled ONCE — ``row0`` is traced), so the wavefront's
     (rays × state-columns) temporaries scale with the slab, not the
-    frame. A whole 4K frame in one jit wants ~45 GB of HBM (measured:
-    the 1M-tri stress render at 4K OOMs at 44.75/15.75 GB); 8 slabs
-    bring the peak under the 1080p level.
+    frame.
 
     Same slab contract as the multi-chip shard_map (parallel/shard.py):
     current-frame rows are sliced per slab, the prev_* snapshots ride

@@ -1,5 +1,6 @@
-"""Image I/O: PNG/JPEG via PIL, plus minimal Radiance-HDR and OpenEXR
-decoders (the reference uses ``parse-exr`` / ``parse-hdr`` npm packages,
+"""Image I/O: a numpy + zlib PNG codec, JPEG via Pillow (cubemap faces
+only, imported lazily), plus minimal Radiance-HDR and OpenEXR decoders
+(the reference uses ``parse-exr`` / ``parse-hdr`` npm packages,
 scene.ts:336-346)."""
 
 from __future__ import annotations
@@ -9,23 +10,125 @@ import zlib
 
 import numpy as np
 
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+
+
+def _to_u8(img: np.ndarray) -> np.ndarray:
+    if img.dtype != np.uint8:
+        img = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    return np.ascontiguousarray(img)
+
+
+def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+    """(H, W, 3|4) float in [0, 1] or uint8 → 8-bit RGB/RGBA PNG bytes
+    (filter type 0 on every row; zlib ``level`` trades size for time)."""
+    arr = _to_u8(img)
+    if arr.ndim != 3 or arr.shape[2] not in (3, 4):
+        raise ValueError(f"expected (H, W, 3|4), got {arr.shape}")
+    h, w, c = arr.shape
+    rows = np.concatenate(
+        [np.zeros((h, 1), np.uint8), arr.reshape(h, w * c)], axis=1
+    )
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (
+            struct.pack(">I", len(body))
+            + kind
+            + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+        )
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0)
+    return (
+        _PNG_SIG
+        + chunk(b"IHDR", ihdr)
+        + chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+        + chunk(b"IEND", b"")
+    )
+
 
 def write_png(path: str, img: np.ndarray) -> None:
     """img: (H, W, 3) float in [0, 1] or uint8."""
-    from PIL import Image
+    with open(path, "wb") as fh:
+        fh.write(encode_png(img))
 
-    if img.dtype != np.uint8:
-        img = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
-    Image.fromarray(img, mode="RGB").save(path)
+
+def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row PNG filters (types 0-4, PNG spec §9)."""
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        ftype = raw[y * (stride + 1)]
+        line = raw[y * (stride + 1) + 1 : (y + 1) * (stride + 1)].astype(
+            np.int32
+        )
+        if ftype == 0:
+            cur = line
+        elif ftype == 2:
+            cur = (line + prev) & 0xFF
+        elif ftype in (1, 3, 4):
+            cur = np.zeros(stride, np.int32)
+            for x in range(stride):
+                a = cur[x - bpp] if x >= bpp else 0
+                b = prev[x]
+                if ftype == 1:
+                    pred = a
+                elif ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = prev[x - bpp] if x >= bpp else 0
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[x] = (line[x] + pred) & 0xFF
+        else:
+            raise ValueError(f"bad PNG filter type {ftype}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """8-bit non-interlaced gray/RGB/RGBA PNG bytes → (H, W, C) uint8."""
+    if not data.startswith(_PNG_SIG):
+        raise ValueError("not a PNG file")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        (n,) = struct.unpack_from(">I", data, pos)
+        kind = data[pos + 4 : pos + 8]
+        body = data[pos + 8 : pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    w, h, depth, ctype, _, _, interlace = hdr
+    channels = {0: 1, 2: 3, 4: 2, 6: 4}.get(ctype)
+    if depth != 8 or channels is None or interlace:
+        raise ValueError(
+            f"unsupported PNG (depth {depth}, color {ctype}, "
+            f"interlace {interlace})"
+        )
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    px = _unfilter(raw, h, w * channels, channels)
+    return px.reshape(h, w, channels)
 
 
 def read_image(path: str) -> np.ndarray:
-    """Decode PNG/JPEG to (H, W, 3) float32 in [0, 1]."""
+    """Decode PNG (numpy) or JPEG (Pillow) to (H, W, 3) float32 in
+    [0, 1]."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if data.startswith(_PNG_SIG):
+        px = decode_png(data)
+        if px.shape[2] < 3:  # gray / gray+alpha
+            px = np.repeat(px[..., :1], 3, axis=2)
+        return px[..., :3].astype(np.float32) / 255.0
     from PIL import Image
 
     with Image.open(path) as im:
-        arr = np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
-    return arr
+        return np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
 
 
 def load_cubemap(paths) -> np.ndarray:

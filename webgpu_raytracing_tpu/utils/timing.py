@@ -72,9 +72,9 @@ def timed(label: str = "", sink=None):
 
 
 @contextlib.contextmanager
-def profile_trace(log_dir: str = "/tmp/wrt_profile"):
-    """jax.profiler trace around a block — the TPU analog of the
-    reference's GPU timestamp queries; view with TensorBoard."""
+def profile_trace(log_dir: str):
+    """jax.profiler trace around a block — the analog of the reference's
+    GPU timestamp queries; view with TensorBoard or Perfetto."""
     import jax
 
     with jax.profiler.trace(log_dir):

@@ -2,9 +2,9 @@
 
 This is a direct, per-pixel transliteration of the reference's WGSL device
 code (render.ts + shaders/rng.ts) into numpy float32 scalar math — an
-implementation *independent* of the TPU framework's vectorized wavefront
+implementation *independent* of the framework's vectorized wavefront
 path (different traversal: the reference's per-object stack walk
-(render.ts:433-640) instead of clustered matmuls; different control flow:
+(render.ts:433-640) instead of clustered tiles; different control flow:
 real divergent branches instead of masks; same bit-exact PCG RNG). Running
 both on the same scene/seed and comparing RMSE is the cross-implementation
 parity evidence for the north-star correctness clause (BASELINE.md).
